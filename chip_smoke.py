@@ -1,0 +1,596 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port of Dash (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--keys N]
+
+Phases, each printed on its own line and each able to fail the run:
+
+  1. the card's name and power limit; build the three CUDA kernels from
+     ``src/repro_torch/kernels/csrc`` with nvcc (one process per source);
+  2. ``bulk_hash`` against its plain PyTorch version on 1M keys plus a
+     ragged tail and the edge words;
+  3. a small op stream through the port on the card and on the CPU: the
+     two tables must end byte-identical;
+  4. the main path at full size: a DashEH in the default geometry with
+     ``max_segments=32768, dir_depth_max=17`` (~430 MB of planes on the
+     card) loaded with 20M unique uniform 8-byte keys (batches grow with
+     the table), searched in 1M-key batches of hits and of misses (the
+     fingerprint-kernel plan), 1000 serving ticks of 256 mixed keys (the
+     fused plan), 64k deletes and 64k updates, and every answer checked
+     against a numpy ground truth. The kernel launch counters are set to 0
+     just before and read just after;
+  5. ``fingerprint_probe`` (direct lanes, and routed lanes with padding)
+     and ``fused_probe`` (256-lane ticks with stash hits) against their
+     plain versions on the filled table;
+  6. each kernel's device time (from the profiler), its wrapper call's and
+     its plain version's time, and its bound; the card's busy share over
+     one traced load batch and 50 traced ticks.
+
+The last three lines are the card line, one JSON object describing every
+kernel, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
+outside a checkout of the repository, it exits nonzero and prints no result.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate (data sheet)
+FP32_OPS_PER_S = 67e12           # H100 SXM float32 rate outside the tensor cores
+SECTOR = 32                      # bytes per DRAM access sector
+DEVICE = "cuda"                  # a CPU rehearsal of the phases sets "cpu"
+
+KERNELS = {   # name: (source, TPU kernel it replaces)
+    "bulk_hash": ("src/repro_torch/kernels/csrc/hashmix.cu",
+                  "src/repro/kernels/hashmix.py:34"),
+    "fingerprint_probe": ("src/repro_torch/kernels/csrc/probe.cu",
+                          "src/repro/kernels/probe.py:69"),
+    "fused_probe": ("src/repro_torch/kernels/csrc/fused.cu",
+                    "src/repro/kernels/fused.py:279"),
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+class PhaseError(RuntimeError):
+    pass
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        raise PhaseError(msg)
+
+
+def gpu_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "unknown"
+
+
+# ---------------------------------------------------------------------------
+# timing and bounds
+# ---------------------------------------------------------------------------
+
+def sync() -> None:
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def time_ms(fn, reps: int = 30, flush_mb: int = 0) -> float:
+    """Median device time of one call (CUDA events around each call, after
+    two warm-up calls); with ``flush_mb`` a buffer that size is rewritten
+    before each call so the call finds the 50 MB L2 cold."""
+    flush = (torch.empty(flush_mb << 20, dtype=torch.uint8, device=DEVICE)
+             if flush_mb else None)
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        if flush is not None:
+            flush.fill_(1)
+        if DEVICE != "cuda":                   # CPU rehearsal: host clock
+            s = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - s) * 1e3)
+            continue
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def _device_events(prof):
+    return [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
+
+
+def kernel_ms(fn, kernel: str, reps: int = 30, flush_mb: int = 0) -> float:
+    """Median device time of one launch of ``kernel`` inside ``fn``, from the
+    profiler's record of the card (the wrapper's host time excluded); event
+    timing of the whole call where the profiler records no device time."""
+    if DEVICE != "cuda":
+        return time_ms(fn, reps, flush_mb)
+    from torch.profiler import ProfilerActivity, profile
+    flush = (torch.empty(flush_mb << 20, dtype=torch.uint8, device=DEVICE)
+             if flush_mb else None)
+    fn()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if flush is not None:
+                flush.fill_(1)
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() for e in _device_events(prof) if kernel in e.name]
+    if not times:
+        log(f"  profiler recorded no {kernel} launch: timing whole calls")
+        return time_ms(fn, reps, flush_mb)
+    return float(np.median(times)) / 1e3
+
+
+def busy_share(fn):
+    """(wall s, device-busy s, top device ops, result) of one traced run of
+    ``fn``: the card's idle share is 1 - busy / wall."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = _device_events(prof)
+    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e6
+    per = {}
+    for e in dev:
+        per[e.name[:60]] = per.get(e.name[:60], 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:5]
+    return wall, busy, top, out
+
+
+def distinct_keys(start: int, n: int) -> np.ndarray:
+    """``n`` distinct uniform 64-bit keys: splitmix64 of a counter range
+    (a bijection, so distinct ranges give disjoint key sets, no sort)."""
+    z = np.arange(start, start + n, dtype=np.uint64) + np.uint64(0x9E3779B97F4A7C15)
+    z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    return z ^ (z >> np.uint64(31))
+
+
+def bound(nbytes: float, ops: float = 0.0):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the peak rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def sectors(byte_offsets) -> int:
+    """Distinct 32-byte sectors holding the given byte offsets."""
+    return int(torch.unique(byte_offsets // SECTOR).numel())
+
+
+def max_abs_err(got, want) -> int:
+    return max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+               for g, w in zip(got, want))
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def phase_build():
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    path = _build.build()
+    _build.load()
+    log(f"phase build: ok {time.perf_counter() - t0:.1f}s {path.name}")
+    for line in _build.build_log.splitlines():
+        if "registers" in line or "spill" in line or line.startswith("=="):
+            log(f"  ptxas {line.strip()}")
+
+
+def phase_bulk_hash(report, m: int = 1 << 20):
+    from repro_torch.kernels import hashmix
+    n = m + 777                                       # 1M keys + a ragged tail
+    rng = np.random.default_rng(1)
+    words = rng.integers(0, 2**32, (2, n), dtype=np.uint64).astype(np.uint32)
+    edge = np.array([0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFE, 0xFFFFFFFF], np.uint32)
+    words[0, :36] = np.repeat(edge, 6)
+    words[1, :36] = np.tile(edge, 6)
+    hi, lo = (torch.from_numpy(w.view(np.int32)).to(DEVICE) for w in words)
+    got = hashmix.bulk_hash(hi, lo)
+    want = hashmix.bulk_hash_plain(hi, lo)
+    sync()
+    err = max_abs_err(got, want)
+    check(err == 0, f"bulk_hash differs from its plain version (max err {err})")
+    check(bool((got[0] < 0).any()), "no h1 >= 2**31 among the test keys")
+    h, l = hi[:m].contiguous(), lo[:m].contiguous()
+    ms = kernel_ms(lambda: hashmix.bulk_hash(h, l), "bulk_hash_kernel", flush_mb=128)
+    call_ms = time_ms(lambda: hashmix.bulk_hash(h, l), flush_mb=128)
+    plain_ms = time_ms(lambda: hashmix.bulk_hash_plain(h, l), reps=10, flush_mb=128)
+    # two hash_pair calls, ~22 integer ops each, plus the fp mask
+    report["bulk_hash"] = dict(max_abs_err=err, ms=ms, call_ms=call_ms,
+                               plain_ms=plain_ms, shape=f"{m} keys",
+                               bound=bound(m * (8 + 12), ops=m * 45.0))
+    log(f"phase bulk_hash: ok exact on {n} keys")
+
+
+def _op_stream(cfg, device, seed: int):
+    """Inserts of every plan (fused / segment, with splits), reads of both
+    plans, deletes and updates; returns the table and every answer."""
+    from repro_torch.core import DashEH
+    rng = np.random.default_rng(seed)
+    keys = np.unique(rng.integers(1, 2**63, 16000, dtype=np.uint64))[:12000]
+    keys = rng.permutation(keys)
+    vals = rng.integers(0, 2**32, keys.size, dtype=np.uint64).astype(np.uint32)
+    t = DashEH(cfg, device=device)
+    out = []
+    for a, b in ((0, 300), (300, 1500), (1500, 5000), (5000, 12000)):
+        out.append(t.insert(keys[a:b], vals[a:b]))
+    out += list(t.search(keys[:5000])) + list(t.search(keys[5000:5300]))
+    out.append(t.delete(keys[::9]))
+    out.append(t.update(keys[1::7], vals[::7][:keys[1::7].size]))
+    out += list(t.search(keys))
+    return t, out
+
+
+def phase_cuda_vs_cpu():
+    from repro_torch import interop
+    from repro_torch.core import DashConfig
+    cfg = DashConfig(max_segments=64, dir_depth_max=10, init_depth=3)
+    t0 = time.perf_counter()
+    t_gpu, out_gpu = _op_stream(cfg, DEVICE, 5)
+    t_cpu, out_cpu = _op_stream(cfg, "cpu", 5)
+    for i, (a, b) in enumerate(zip(out_gpu, out_cpu)):
+        check(np.array_equal(a, b), f"answer {i} differs between cuda and cpu")
+    a, b = interop.state_to_numpy(t_gpu.state), interop.state_to_numpy(t_cpu.state)
+    bad = [k for k in a if a[k].tobytes() != b[k].tobytes()]
+    check(not bad, f"cuda and cpu states differ in {bad}")
+    check(t_gpu.n_segments > 8, "op stream made too few splits")
+    log(f"phase cuda_vs_cpu: ok byte-identical states after 12000 inserts, "
+        f"{t_gpu.n_segments} segments, deletes/updates/searches "
+        f"({time.perf_counter() - t0:.1f}s)")
+
+
+def phase_main_path(cfg, n_keys: int, n_ticks: int, report):
+    from repro_torch.core import DashEH, engine
+    from repro_torch.kernels import fused, hashmix, probe
+
+    rng = np.random.default_rng(20)
+    t0 = time.perf_counter()
+    n_tick_keys = 64 * (n_ticks + 50)
+    keys = distinct_keys(0, n_keys)                        # the live set
+    tick_new = distinct_keys(n_keys, n_tick_keys)          # inserted by ticks
+    misses = distinct_keys(n_keys + n_tick_keys, 1 << 20)  # never inserted
+    vals = rng.integers(0, 2**32, n_keys, dtype=np.uint64).astype(np.uint32)
+    log(f"  main: {n_keys} keys generated in {time.perf_counter() - t0:.1f}s")
+
+    for mod in (hashmix, probe, fused):
+        mod.LAUNCHES = 0
+    t = DashEH(cfg, device=DEVICE)
+    state_mb = sum(x.numel() * x.element_size() for x in t.state) / 2**20
+    sync()
+
+    # ---- load: batches grow with the table (~64 new keys per segment) ----
+    t0 = time.perf_counter()
+    done, n_batches, load_trace = 0, 0, None
+    while done < n_keys:
+        n = min(max(256, 64 * t.n_segments), n_keys - done)
+        batch = (keys[done:done + n], vals[done:done + n])
+        if load_trace is None and done >= n_keys // 2 and DEVICE == "cuda":
+            # one traced batch: the card's busy share during the load
+            *load_trace, st = busy_share(lambda: t.insert(*batch))
+            load_trace.append(n)
+        else:
+            st = t.insert(*batch)
+        check((st == 0).all(), f"load batch {n_batches}: statuses {np.bincount(st)}")
+        done += n
+        n_batches += 1
+        if n_batches % 20 == 0:
+            log(f"  main: load {done} keys, {t.n_segments} segments, "
+                f"{time.perf_counter() - t0:.1f}s")
+    sync()
+    load_s = time.perf_counter() - t0
+    log(f"  main: loaded {n_keys} keys in {n_batches} batches, {load_s:.1f}s "
+        f"({n_keys / load_s / 1e6:.3f} Mops/s), {t.n_segments} segments, "
+        f"state {state_mb:.0f} MB, load factor {t.load_factor:.3f}")
+
+    # ---- 1M-key searches: hits and misses (fingerprint-kernel plan) ----
+    B = 1 << 20
+    t0 = time.perf_counter()
+    n_hit = 0
+    for a in range(0, min(n_keys, 4 * B), B):
+        f, v = t.search(keys[a:a + B])
+        check(f.all() and (v == vals[a:a + B]).all(), f"search batch at {a} wrong")
+        n_hit += f.size
+    f, _ = t.search(misses)
+    check(not f.any(), "a missing key was found")
+    sync()
+    search_s = time.perf_counter() - t0
+    n_searched = n_hit + misses.size
+    log(f"  main: searched {n_searched} keys in 1M batches, {search_s:.2f}s "
+        f"({n_searched / search_s / 1e6:.3f} Mops/s)")
+
+    # ---- serving ticks: 128 hits + 64 misses read, 64 new keys inserted ----
+    live_extra = []
+    lat = []
+    t0 = time.perf_counter()
+    for i in range(n_ticks):
+        q = np.concatenate([keys[rng.integers(0, n_keys, 128)],
+                            misses[rng.integers(0, misses.size, 64)]])
+        new = tick_new[64 * i:64 * (i + 1)]
+        new_vals = (np.arange(new.size, dtype=np.uint32) + 64 * i) ^ np.uint32(0xA5A5A5A5)
+        s = time.perf_counter()
+        f, v = t.search(q)
+        st = t.insert(new, new_vals)
+        lat.append(time.perf_counter() - s)
+        check(f[:128].all() and not f[128:].any(), f"tick {i}: wrong found mask")
+        check((st == 0).all(), f"tick {i}: insert statuses {np.bincount(st)}")
+        live_extra.append((new, new_vals))
+    ticks_s = time.perf_counter() - t0
+    lat_ms = np.asarray(lat) * 1e3
+    log(f"  main: {n_ticks} ticks of 256 keys in {ticks_s:.1f}s: p50 "
+        f"{np.percentile(lat_ms, 50):.3f} ms, p99 {np.percentile(lat_ms, 99):.3f} ms")
+    if DEVICE == "cuda":
+        # 50 more ticks, traced: the card's busy share at serving time
+        def traced_ticks():
+            for i in range(n_ticks, n_ticks + 50):
+                f, _ = t.search(np.concatenate([keys[rng.integers(0, n_keys, 128)],
+                                                misses[rng.integers(0, misses.size, 64)]]))
+                new = tick_new[64 * i:64 * (i + 1)]
+                new_vals = np.arange(new.size, dtype=np.uint32)
+                st = t.insert(new, new_vals)
+                check(f[:128].all() and not f[128:].any() and (st == 0).all(),
+                      f"traced tick {i} wrong")
+                live_extra.append((new, new_vals))
+        for what, (wall, busy, top) in (
+                ("50 ticks", busy_share(traced_ticks)[:3]),
+                (f"one load batch of {load_trace[3]} keys", load_trace[:3])):
+            log(f"  trace {what}: wall {wall * 1e3:.1f} ms, card busy {busy * 1e3:.1f} ms "
+                f"(idle share {1 - busy / wall:.3f}); top: "
+                + "; ".join(f"{k} {v:.2f} ms" for k, v in top))
+
+    # ---- deletes and updates, then every answer against the ground truth ----
+    n_mut = min(65536, n_keys // 4)
+    pick = rng.permutation(n_keys)[:2 * n_mut]
+    dele, upd = pick[:n_mut], pick[n_mut:]
+    check((t.delete(keys[dele]) == 0).all(), "a delete missed")
+    new_vals = vals[upd] ^ np.uint32(0x5A5A5A5A)
+    check((t.update(keys[upd], new_vals) == 0).all(), "an update missed")
+    truth = vals.copy()
+    truth[upd] = new_vals
+    alive = np.ones(n_keys, bool)
+    alive[dele] = False
+    t0 = time.perf_counter()
+    for a in range(0, n_keys, B):
+        f, v = t.search(keys[a:a + B])
+        check((f == alive[a:a + B]).all(), f"verify batch at {a}: found mask wrong")
+        check((v[f] == truth[a:a + B][f]).all(), f"verify batch at {a}: values wrong")
+    extra_k = np.concatenate([k for k, _ in live_extra])
+    extra_v = np.concatenate([v for _, v in live_extra])
+    f, v = t.search(extra_k)
+    check(f.all() and (v == extra_v).all(), "a key inserted during ticks is wrong")
+    f, _ = t.search(misses)
+    check(not f.any(), "a missing key was found after deletes")
+    expect = int(alive.sum()) + extra_k.size
+    recount = int(engine.recount_items(t.state))
+    check(t.n_items == recount == expect,
+          f"n_items {t.n_items} recount {recount} expected {expect}")
+    sync()
+    verify_s = time.perf_counter() - t0
+    launches = {"bulk_hash": hashmix.LAUNCHES, "fingerprint_probe": probe.LAUNCHES,
+                "fused_probe": fused.LAUNCHES}
+    for name, count in launches.items():
+        check(count > 0 or DEVICE != "cuda", f"{name} was not launched on the main path")
+        report.setdefault(name, {})["launches"] = count
+    log(f"  main: deletes/updates applied, {expect} live keys verified in "
+        f"{verify_s:.1f}s, n_items == recount_items == {expect}")
+    log(f"phase main_path: ok launches {launches}")
+    summary = dict(insert_mops=n_keys / load_s / 1e6,
+                   search_mops=n_searched / search_s / 1e6,
+                   tick_p50_ms=float(np.percentile(lat_ms, 50)),
+                   tick_p99_ms=float(np.percentile(lat_ms, 99)),
+                   keys=n_keys, segments=t.n_segments, state_mb=state_mb)
+    return t, keys, misses, summary
+
+
+def _stash_keys(t, limit: int):
+    """(hi, lo) words of up to ``limit`` records living in stash rows."""
+    cfg, st = t.cfg, t.state
+    NB = cfg.num_buckets
+    alloc = (st.meta[:, NB:].long() & 0x3FFF)
+    bits = ((alloc[..., None] >> torch.arange(cfg.num_slots, device=alloc.device)) & 1) == 1
+    hi, lo = st.key_hi[:, NB:][bits], st.key_lo[:, NB:][bits]
+    return hi[:limit], lo[:limit]
+
+
+def phase_probe_kernels(t, keys, misses, report, n: int = 1 << 20):
+    from repro_torch.core import engine, hashing
+    from repro_torch.kernels import _build, fused, hashmix, ops, probe
+    cfg, st = t.cfg, t.state
+    NB, BT = cfg.num_buckets, cfg.buckets_total
+
+    # -- fingerprint_probe: 1M direct lanes (half hits), the main-path shape --
+    q = np.concatenate([keys[:n // 2], misses[:n // 2]])
+    hi, lo = hashing.split_keys(q, DEVICE)
+    h1, _, fp = hashmix.bulk_hash(hi, lo)
+    seg, b = engine.locate(cfg, "eh", st, h1)
+    lanes = (seg.int(), fp, b.int(), ((b + 1) & (NB - 1)).int())
+    got = probe.fingerprint_probe(st.fp, st.meta, *lanes)
+    want = probe.fingerprint_probe_plain(st.fp, st.meta, *lanes)
+    err = max_abs_err(got, want)
+    # -- routed lanes: (S, C) flattened with row = segment, mostly padding --
+    nq = min(65536, 2 * cfg.max_segments)       # 8 lanes per segment: padding left
+    qf, qb, qpb, _, _ = ops.route_queries(cfg, st, hi[:nq], lo[:nq], 8)
+    S, C = qf.shape
+    rseg = torch.arange(S, dtype=torch.int32, device=DEVICE)[:, None].expand(S, C)
+    rl = (rseg.reshape(-1).contiguous(), qf.reshape(-1), qb.reshape(-1), qpb.reshape(-1))
+    check(bool((rl[2] < 0).any()), "routed lanes hold no padding lanes")
+    err = max(err, max_abs_err(probe.fingerprint_probe(st.fp, st.meta, *rl),
+                               probe.fingerprint_probe_plain(st.fp, st.meta, *rl)))
+    sync()
+    check(err == 0, f"fingerprint_probe differs from its plain version (max err {err})")
+    check(bool((got[0] | got[1]).ne(0).any()), "no fingerprint hits")
+    ms = kernel_ms(lambda: probe.fingerprint_probe(st.fp, st.meta, *lanes),
+                   "fingerprint_probe_kernel", flush_mb=128)
+    call_ms = time_ms(lambda: probe.fingerprint_probe(st.fp, st.meta, *lanes), flush_mb=128)
+    plain_ms = time_ms(lambda: probe.fingerprint_probe_plain(st.fp, st.meta, *lanes),
+                       reps=10, flush_mb=128)
+    rows = torch.cat([lanes[0].long() * BT + lanes[2].long(),
+                      lanes[0].long() * BT + lanes[3].long()])
+    nbytes = n * 16 + n * 16 + SECTOR * (sectors(rows * 16) + sectors(rows * 4))
+    report["fingerprint_probe"].update(
+        max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+        bound=bound(nbytes, ops=n * 60.0), shape=f"{n} direct lanes")
+    log(f"phase fingerprint_probe: ok exact on {n} direct + {S * C} routed lanes; "
+        f"{nbytes / n:.0f} B/lane of HBM traffic needed")
+
+    # -- fused_probe: 256-lane ticks with stash-resident keys --
+    s_hi, s_lo = _stash_keys(t, 4096)
+    check(s_hi.numel() > 0, "no stash-resident record for the tick test")
+    err, n_stash_hits, ticks = 0, 0, []
+    rng = np.random.default_rng(3)
+    for i in range(16):
+        k_hi, k_lo = hashing.split_keys(np.concatenate(
+            [keys[rng.integers(0, keys.size, 128)], misses[rng.integers(0, misses.size, 64)]]),
+            DEVICE)
+        pick = torch.from_numpy(rng.integers(0, s_hi.numel(), 64)).to(DEVICE)
+        q_hi = torch.cat([k_hi, s_hi[pick]]).contiguous()
+        q_lo = torch.cat([k_lo, s_lo[pick]]).contiguous()
+        h1, _, fpq = hashmix.bulk_hash(q_hi, q_lo)
+        seg, b = engine.locate(cfg, "eh", st, h1)
+        args = (st.fp, st.meta, st.key_hi, st.key_lo, st.val, st.stash_active,
+                seg.int(), fpq, b.int(), ((b + 1) & (NB - 1)).int(), q_hi, q_lo)
+        kw = dict(nb=NB, ns=cfg.num_stash, use_fp=cfg.use_fingerprints)
+        got = fused.fused_probe(*args, **kw)
+        want = fused.fused_probe_plain(*args, **kw)
+        err = max(err, max_abs_err(got, want))
+        n_stash_hits += int(got[0][192:].sum())
+        ticks.append((args, kw, got[0]))
+    sync()
+    check(err == 0, f"fused_probe differs from its plain version (max err {err})")
+    check(n_stash_hits == 16 * 64, f"stash hits {n_stash_hits} of {16 * 64}")
+    args, kw, found = ticks[0]
+    ms = kernel_ms(lambda: fused.fused_probe(*args, **kw), "fused_probe_kernel",
+                   reps=200, flush_mb=128)
+    call_ms = time_ms(lambda: fused.fused_probe(*args, **kw), reps=200)
+    plain_ms = time_ms(lambda: fused.fused_probe_plain(*args, **kw), reps=50)
+    if DEVICE == "cuda":
+        lib, stream = _build.load(), torch.cuda.current_stream().cuda_stream
+        empty_ms = kernel_ms(lambda: lib.dash_noop_launch(stream), "noop_kernel", reps=200)
+    else:
+        empty_ms = float("nan")
+    nbytes = _fused_bytes(cfg, st, args, found)
+    report["fused_probe"].update(
+        max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+        bound=bound(nbytes, ops=256 * 200.0), shape="256-lane tick")
+    log(f"phase fused_probe: ok exact on 16 ticks of 256 lanes, {n_stash_hits} stash "
+        f"hits; {nbytes} B of HBM traffic needed; an empty launch takes "
+        f"{empty_ms * 1e3:.2f} us on the card")
+
+
+def _fused_bytes(cfg, st, args, found):
+    """HBM bytes one tick needs: lane words in and out, plus the 32-byte
+    sectors of every row the kernel visits (meta always; fp and key rows
+    where the row has allocated slots; the value on a hit). Rows after a
+    lane's hit are not visited."""
+    NB, BT, SL, ns = cfg.num_buckets, cfg.buckets_total, cfg.num_slots, cfg.num_stash
+    seg, b, pb = args[6].long(), args[8].long(), args[9].long()
+    rows = [b, pb] + [torch.full_like(b, NB + s) for s in range(ns)]
+    active = st.stash_active[seg].long()
+    hit_row = torch.full_like(b, len(rows))          # index of the row holding the hit
+    alloc_rows = []
+    for i, r in enumerate(rows):
+        alloc = st.meta[seg, r].long() & 0x3FFF
+        keys_here = ((st.key_hi[seg, r] == args[10][:, None]) & (st.key_lo[seg, r] == args[11][:, None])
+                     & (((alloc[:, None] >> torch.arange(SL, device=b.device)) & 1) == 1)).any(-1)
+        hit_row = torch.where((hit_row == len(rows)) & keys_here & (found != 0), i, hit_row)
+        alloc_rows.append(alloc != 0)
+    meta_off, fp_off, key_off, val_off = [], [], [], []
+    for i, r in enumerate(rows):
+        visited = i <= hit_row
+        if i >= 2:
+            visited = visited & (i - 2 < active)
+        flat = seg * BT + r
+        meta_off.append((flat * 4)[visited])
+        full = visited & alloc_rows[i]
+        fp_off.append((flat * 16)[full])
+        key_off += [(flat * SL * 4 + k)[full] for k in list(range(0, SL * 4, SECTOR)) + [SL * 4 - 1]]
+        val_off.append((flat * SL * 4)[visited & (hit_row == i)])
+    # planes live in separate allocations: count their sectors separately
+    total = sum(sectors(torch.cat(x)) for x in (meta_off, fp_off, val_off))
+    total += 2 * sectors(torch.cat(key_off))                      # key_hi, key_lo
+    return 256 * 24 + 256 * 8 + SECTOR * total
+
+
+def kernel_line(report):
+    rows = []
+    for name, (src, replaces) in KERNELS.items():
+        r = report[name]
+        bound_ms, bound_by = r["bound"]
+        rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                     "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+                     "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None})
+    return json.dumps({"kernels": rows})
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--keys", type=int, default=20_000_000,
+                    help="keys loaded on the main path (default 20M, never below 4M)")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.core import DashConfig   # fails outside a checkout of the repo
+    if args.keys < 4_000_000:
+        print("chip_smoke: --keys below 4M is not the main path", file=sys.stderr)
+        return 2
+    card = gpu_line()
+    log(f"card: {card}")
+    if args.keys != 20_000_000:
+        log(f"main path cut: {args.keys} keys of 20000000")
+    report = {}
+    t0 = time.perf_counter()
+    try:
+        phase_build()
+        phase_bulk_hash(report)
+        phase_cuda_vs_cpu()
+        t, keys, misses, summary = phase_main_path(
+            DashConfig(max_segments=32768, dir_depth_max=17), args.keys, 1000, report)
+        phase_probe_kernels(t, keys, misses, report)
+    except PhaseError as e:
+        log(f"FAILED: {e}")
+        return 1
+    for name in KERNELS:
+        r = report[name]
+        log(f"kernel {name}: {r['ms'] * 1e3:.2f} us on the card per launch at "
+            f"{r['shape']} ({r['call_ms'] * 1e3:.2f} us per wrapper call; plain "
+            f"{r['plain_ms'] * 1e3:.2f} us; bound {r['bound'][0] * 1e3:.3f} us by "
+            f"{r['bound'][1]}), {r['launches']} launches on the main path [{card}]")
+    log(f"end to end [{card}]: insert {summary['insert_mops']:.3f} Mops/s, search "
+        f"{summary['search_mops']:.3f} Mops/s, tick p50 {summary['tick_p50_ms']:.3f} ms "
+        f"p99 {summary['tick_p99_ms']:.3f} ms ({summary['keys']} keys, "
+        f"{summary['segments']} segments, {summary['state_mb']:.0f} MB state); "
+        f"total {time.perf_counter() - t0:.0f}s")
+    log(card)
+    log(kernel_line(report))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                           "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

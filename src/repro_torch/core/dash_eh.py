@@ -1,0 +1,124 @@
+"""Dash-EH: extendible hashing with Dash building blocks (paper Sec. 4).
+
+Segment split is the paper's three-step SMO (Sec. 4.7) as two phases with
+a crash-recoverable boundary between them:
+
+  phase 1 (allocate + initialize + link): mark S SPLITTING, allocate N at
+      the pool watermark, chain side links, set both local depths, mark N NEW.
+  phase 2 (rehash + publish): redistribute records by the (ld+1)-th MSB,
+      point the directory prefix range at N, clear SMO states.
+
+Ported from ``repro.core.dash_eh`` (the split half; merges come with the
+shrink slice). Planes are updated IN PLACE.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import engine, layout
+from .layout import (NEED_SPLIT, SEG_NEW, SEG_NORMAL, SEG_SPLITTING, DashConfig,
+                     DashState, u32, word)
+
+
+def split_phase1(cfg: DashConfig, state: DashState, old_seg: int,
+                 new_seg: int | None = None):
+    """Allocate + initialize the new segment (default: the pool watermark);
+    returns (state, new_seg)."""
+    if new_seg is None:
+        new_seg = int(state.watermark)
+    ld = state.local_depth[old_seg].clone()
+    state.seg_state[old_seg] = SEG_SPLITTING
+    state.seg_state[new_seg] = SEG_NEW
+    state.side_link[new_seg] = state.side_link[old_seg].clone()
+    state.side_link[old_seg] = new_seg
+    state.local_depth[old_seg] = ld + 1
+    state.local_depth[new_seg] = ld + 1
+    state.seg_version[new_seg] = state.gver
+    state.stash_active[new_seg] = cfg.num_stash
+    state.watermark.clamp_(min=new_seg + 1)
+    return state, new_seg
+
+
+def _clear_segment(cfg: DashConfig, state: DashState, seg: int):
+    """Zero a segment's fingerprints and metadata words (its records become
+    unreachable; the key planes keep their stale bytes, as in the reference)."""
+    for plane in (state.fp, state.ofp, state.meta, state.ometa):
+        plane[seg] = 0
+
+
+def split_phase2_scan(cfg: DashConfig, state: DashState, old_seg: int,
+                      new_seg: int, check_unique: bool = False):
+    """Per-record rehash + directory publish: the reference SMO path, kept
+    as the fallback for packings the vectorized rebuild does not fit.
+    Records are re-inserted in slot order; those bound for the old and the
+    new segment form two independent sequences, stepped together one
+    record per segment (``engine._segment_parallel``), which gives the
+    sequential scan's result. Returns (state, all_refit)."""
+    from repro_torch.kernels import ops
+    n0 = state.n_items.clone()             # splits move records: net zero
+    ld_new = int(state.local_depth[old_seg])
+    hi, lo, val, valid = engine.segment_records(cfg, state, old_seg)
+    hi, lo, val = hi.clone(), lo.clone(), val.clone()
+    h1, h2 = engine.record_hashes(cfg, state, hi, lo)
+    move = ((u32(h1) >> (32 - ld_new)) & 1) == 1
+
+    _clear_segment(cfg, state, old_seg)
+    n = hi.shape[0]
+    (l_hi, l_lo, l_val, l_h2, l_b, l_valid), _, _ = ops.route_lanes(
+        move.long(), (hi, lo, val, h2, layout.bucket_index(cfg, h1), valid),
+        2, n, (0, 0, 0, 0, 0, False))
+    segs = torch.tensor([old_seg, new_seg], device=hi.device)[:, None].expand(2, n)
+    lanes = dict(hi=l_hi, lo=l_lo, val=l_val, h2=l_h2, b=l_b, valid=l_valid,
+                 seg=segs)
+    (statuses,) = engine._segment_parallel(
+        state, lanes,
+        lambda st, ln: engine._insert_core(
+            cfg, st, ln["seg"], ln["b"], ln["h2"], ln["hi"], ln["lo"],
+            ln["val"], ln["valid"], check_unique=check_unique)[:1],
+        (layout.DROPPED,))
+    fits = not bool((statuses == NEED_SPLIT).any())
+
+    # directory publish: among entries owned by old_seg, the half whose
+    # (ld+1)-th MSB is 1 now points at new_seg (contiguous under MSB indexing)
+    idx = torch.arange(cfg.dir_size, device=hi.device)
+    take = (state.dir == old_seg) & (((idx >> (cfg.dir_depth_max - ld_new)) & 1) == 1)
+    state.dir[take] = new_seg
+
+    gd = int(state.global_depth)
+    state.global_depth.fill_(max(gd, ld_new))
+    state.n_doublings.add_(int(ld_new > gd))
+    state.n_splits.add_(1)
+    for s in (old_seg, new_seg):
+        state.seg_state[s] = SEG_NORMAL
+        state.seg_version[s] = state.gver
+        state.version[s] = word(u32(state.version[s]) + 2)
+    state.n_items.copy_(n0)     # incremental accounting: a split never changes the count
+    return state, fits
+
+
+def split_phase2(cfg: DashConfig, state: DashState, old_seg: int, new_seg: int,
+                 check_unique: bool = False):
+    """Rehash + publish through the vectorized SMO engine; falls back to the
+    scan rehash for packings the rebuild does not cover. Returns
+    (state, all_refit)."""
+    from . import smo
+    if not smo.rebuild_eligible(cfg):
+        return split_phase2_scan(cfg, state, old_seg, new_seg, check_unique)
+    dev = state.dir.device
+    old = torch.tensor([old_seg], dtype=torch.int32, device=dev)
+    new = torch.tensor([new_seg], dtype=torch.int32, device=dev)
+    state, ok = smo.bulk_split_phase2(cfg, state, old, new,
+                                      torch.ones(1, dtype=torch.bool, device=dev),
+                                      check_unique)
+    if not bool(ok[0]):
+        return split_phase2_scan(cfg, state, old_seg, new_seg, check_unique)
+    return state, True
+
+
+def split_segment(cfg: DashConfig, state: DashState, old_seg: int,
+                  new_seg: int | None = None, impl: str = "rebuild"):
+    """Full SMO = phase 1 + phase 2. ``impl="scan"`` forces the per-record
+    reference rehash. Returns (state, all_refit)."""
+    state, new_seg = split_phase1(cfg, state, old_seg, new_seg)
+    phase2 = split_phase2_scan if impl == "scan" else split_phase2
+    return phase2(cfg, state, old_seg, new_seg)

@@ -11,6 +11,10 @@ Phases, each printed on its own line and each able to fail the run:
      ragged tail and the edge words;
   3. a small op stream through the port on the card and on the CPU: the
      two tables must end byte-identical;
+  3b. ``fused_probe`` and ``fingerprint_probe`` against their plain
+     versions on seeded hostile inputs (``kernels/edges.py``): first-hit
+     order, fingerprint collisions, the stash gate, out-of-range rows and
+     segment ids, 1, 2 or 4 stash rows active, unaligned and ragged lanes;
   4. the main path at full size: a DashEH in the default geometry with
      ``max_segments=32768, dir_depth_max=17`` (~430 MB of planes on the
      card) loaded with 20M unique uniform 8-byte keys (batches grow with
@@ -23,8 +27,12 @@ Phases, each printed on its own line and each able to fail the run:
      and ``fused_probe`` (256-lane ticks with stash hits) against their
      plain versions on the filled table;
   6. each kernel's device time (from the profiler), its wrapper call's and
-     its plain version's time, and its bound; the card's busy share over
-     one traced load batch and 50 traced ticks.
+     its plain version's time, and its bound; ``fingerprint_probe`` also at
+     4096 and 65,536 lanes and with its planes warm in L2; ``fused_probe``'s
+     latency floor (an empty launch plus three dependent HBM loads, each
+     timed by a one-thread pointer chase through 512 MiB) and its wrapper's
+     host time per call; the card's busy share over one traced load batch
+     and 50 traced ticks.
 
 The last three lines are the card line, one JSON object describing every
 kernel, and ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -261,6 +269,37 @@ def phase_cuda_vs_cpu():
         f"({time.perf_counter() - t0:.1f}s)")
 
 
+def phase_edges():
+    """Both read kernels against their plain versions on the seeded hostile
+    inputs of ``kernels/edges.py``: 512 lanes for ns = 2 and 4 with
+    fingerprints on and off, the same lanes tiled to 1M + 3 (2 lanes a
+    thread, an odd count) and offset by one word."""
+    from repro_torch.kernels import edges, fused, probe
+    t0 = time.perf_counter()
+    err_fused = err_fp = n_lanes = 0
+    for ns in (2, 4):
+        case = edges.read_kernel_edges(7 + ns, ns=ns)
+        planes, lanes = edges.to_torch(case, DEVICE)
+        big = tuple(x.repeat((1 << 20) // x.numel() + 1)[:(1 << 20) + 3].contiguous()
+                    for x in lanes)
+        for ls in (lanes, big, tuple(x[1:] for x in big)):
+            for use_fp in (True, False):
+                kw = dict(nb=case["nb"], ns=ns, use_fp=use_fp)
+                err_fused = max(err_fused, max_abs_err(fused.fused_probe(*planes, *ls, **kw),
+                                                       fused.fused_probe_plain(*planes, *ls, **kw)))
+            args = planes[:2] + ls[:4]
+            err_fp = max(err_fp, max_abs_err(probe.fingerprint_probe(*args),
+                                             probe.fingerprint_probe_plain(*args)))
+            n_lanes += ls[0].numel()
+    sync()
+    check(err_fused == 0, f"fused_probe differs from its plain version on hostile inputs "
+          f"(max err {err_fused})")
+    check(err_fp == 0, f"fingerprint_probe differs from its plain version on hostile inputs "
+          f"(max err {err_fp})")
+    log(f"phase edges: ok both read kernels exact on {n_lanes} hostile lanes "
+        f"(ns 2 and 4, fingerprints on and off; {time.perf_counter() - t0:.1f}s)")
+
+
 def phase_main_path(cfg, n_keys: int, n_ticks: int, report):
     from repro_torch.core import DashEH, engine
     from repro_torch.kernels import fused, hashmix, probe
@@ -415,7 +454,7 @@ def _stash_keys(t, limit: int):
 
 def phase_probe_kernels(t, keys, misses, report, n: int = 1 << 20):
     from repro_torch.core import engine, hashing
-    from repro_torch.kernels import _build, fused, hashmix, ops, probe
+    from repro_torch.kernels import fused, hashmix, ops, probe
     cfg, st = t.cfg, t.state
     NB, BT = cfg.num_buckets, cfg.buckets_total
 
@@ -445,14 +484,24 @@ def phase_probe_kernels(t, keys, misses, report, n: int = 1 << 20):
     call_ms = time_ms(lambda: probe.fingerprint_probe(st.fp, st.meta, *lanes), flush_mb=128)
     plain_ms = time_ms(lambda: probe.fingerprint_probe_plain(st.fp, st.meta, *lanes),
                        reps=10, flush_mb=128)
-    rows = torch.cat([lanes[0].long() * BT + lanes[2].long(),
-                      lanes[0].long() * BT + lanes[3].long()])
-    nbytes = n * 16 + n * 16 + SECTOR * (sectors(rows * 16) + sectors(rows * 4))
+    warm_ms = kernel_ms(lambda: probe.fingerprint_probe(st.fp, st.meta, *lanes),
+                        "fingerprint_probe_kernel")       # planes left in L2 by the last call
+    nbytes = _probe_bytes(BT, lanes)
     report["fingerprint_probe"].update(
         max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
         bound=bound(nbytes, ops=n * 60.0), shape=f"{n} direct lanes")
     log(f"phase fingerprint_probe: ok exact on {n} direct + {S * C} routed lanes; "
-        f"{nbytes / n:.0f} B/lane of HBM traffic needed")
+        f"{nbytes / n:.0f} B/lane of HBM traffic needed; {ms * 1e3:.2f} us with L2 "
+        f"flushed, {warm_ms * 1e3:.2f} us with the planes warm in L2")
+    # the same kernel across the batch sizes the planner gives it (> 1024 keys)
+    for m in [m for m in (4096, 65536) if m < n] + [n]:
+        sub = tuple(torch.cat([x[:m // 2], x[n // 2:n // 2 + m // 2]]) for x in lanes)
+        m_ms = ms if m == n else kernel_ms(
+            lambda: probe.fingerprint_probe(st.fp, st.meta, *sub),
+            "fingerprint_probe_kernel", flush_mb=128)
+        b_ms, b_by = bound(_probe_bytes(BT, sub), ops=m * 60.0)
+        log(f"  fingerprint_probe at {m} direct lanes: {m_ms * 1e3:.2f} us on the card, "
+            f"bound {b_ms * 1e3:.3f} us by {b_by} ({b_ms / m_ms:.1%} of it)")
 
     # -- fused_probe: 256-lane ticks with stash-resident keys --
     s_hi, s_lo = _stash_keys(t, 4096)
@@ -483,19 +532,61 @@ def phase_probe_kernels(t, keys, misses, report, n: int = 1 << 20):
     ms = kernel_ms(lambda: fused.fused_probe(*args, **kw), "fused_probe_kernel",
                    reps=200, flush_mb=128)
     call_ms = time_ms(lambda: fused.fused_probe(*args, **kw), reps=200)
+    host_us = host_us_per_call(lambda: fused.fused_probe(*args, **kw))
     plain_ms = time_ms(lambda: fused.fused_probe_plain(*args, **kw), reps=50)
-    if DEVICE == "cuda":
-        lib, stream = _build.load(), torch.cuda.current_stream().cuda_stream
-        empty_ms = kernel_ms(lambda: lib.dash_noop_launch(stream), "noop_kernel", reps=200)
-    else:
-        empty_ms = float("nan")
+    empty_ms, load_ns = latency_floor() if DEVICE == "cuda" else (float("nan"),) * 2
+    floor_ms = empty_ms + 3 * load_ns * 1e-6
     nbytes = _fused_bytes(cfg, st, args, found)
     report["fused_probe"].update(
-        max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+        max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms, floor_ms=floor_ms,
         bound=bound(nbytes, ops=256 * 200.0), shape="256-lane tick")
     log(f"phase fused_probe: ok exact on 16 ticks of 256 lanes, {n_stash_hits} stash "
         f"hits; {nbytes} B of HBM traffic needed; an empty launch takes "
-        f"{empty_ms * 1e3:.2f} us on the card")
+        f"{empty_ms * 1e3:.2f} us and a dependent HBM load {load_ns:.1f} ns on the card, "
+        f"so the latency floor (launch + 3 dependent loads) is {floor_ms * 1e3:.2f} us; "
+        f"the wrapper costs {host_us:.2f} us of host time a call (1000 calls back to back)")
+
+
+def host_us_per_call(fn, calls: int = 1000) -> float:
+    """Host microseconds per call of ``fn`` issued back to back (one sync at
+    the end): what the wrapper costs the caller when its kernel is shorter."""
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def latency_floor(steps: int = 1 << 14, mib: int = 512):
+    """(ms of an empty launch, ns per dependent HBM load): the second from
+    one thread chasing ``steps`` loads through a random single-cycle
+    permutation of ``mib`` MiB of u32 indices (10x the L2, flushed before
+    each timed chase), empty launch subtracted."""
+    from repro_torch.kernels import _build
+    lib, stream = _build.load(), torch.cuda.current_stream().cuda_stream
+    empty_ms = kernel_ms(lambda: lib.dash_noop_launch(stream), "noop_kernel", reps=200)
+    m = mib << 18
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    perm = torch.randperm(m, device=DEVICE, generator=gen)
+    nxt = torch.empty(m, dtype=torch.int32, device=DEVICE)
+    nxt[perm] = perm.roll(-1).int()                      # one cycle through all m
+    del perm
+    out = torch.empty(1, dtype=torch.int32, device=DEVICE)
+    chase_ms = time_ms(lambda: _build.check(lib.dash_latency_chase(
+        nxt.data_ptr(), steps, out.data_ptr(), stream), "latency_chase"), reps=5,
+        flush_mb=128)                                   # the chain's lines leave L2
+    return empty_ms, (chase_ms - empty_ms) * 1e6 / steps
+
+
+def _probe_bytes(bt, lanes) -> int:
+    """HBM bytes fingerprint_probe needs: lane words in and out, plus the
+    32-byte sectors of every fp row and meta word the lanes touch."""
+    n = lanes[0].numel()
+    rows = torch.cat([lanes[0].long() * bt + lanes[2].long(),
+                      lanes[0].long() * bt + lanes[3].long()])
+    return n * 16 + n * 16 + SECTOR * (sectors(rows * 16) + sectors(rows * 4))
 
 
 def _fused_bytes(cfg, st, args, found):
@@ -567,6 +658,7 @@ def main(argv=None) -> int:
         phase_build()
         phase_bulk_hash(report)
         phase_cuda_vs_cpu()
+        phase_edges()
         t, keys, misses, summary = phase_main_path(
             DashConfig(max_segments=32768, dir_depth_max=17), args.keys, 1000, report)
         phase_probe_kernels(t, keys, misses, report)
@@ -575,10 +667,11 @@ def main(argv=None) -> int:
         return 1
     for name in KERNELS:
         r = report[name]
+        floor = (f"; latency floor {r['floor_ms'] * 1e3:.2f} us" if "floor_ms" in r else "")
         log(f"kernel {name}: {r['ms'] * 1e3:.2f} us on the card per launch at "
             f"{r['shape']} ({r['call_ms'] * 1e3:.2f} us per wrapper call; plain "
             f"{r['plain_ms'] * 1e3:.2f} us; bound {r['bound'][0] * 1e3:.3f} us by "
-            f"{r['bound'][1]}), {r['launches']} launches on the main path [{card}]")
+            f"{r['bound'][1]}{floor}), {r['launches']} launches on the main path [{card}]")
     log(f"end to end [{card}]: insert {summary['insert_mops']:.3f} Mops/s, search "
         f"{summary['search_mops']:.3f} Mops/s, tick p50 {summary['tick_p50_ms']:.3f} ms "
         f"p99 {summary['tick_p99_ms']:.3f} ms ({summary['keys']} keys, "

@@ -31,11 +31,10 @@ _P, _I64, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 #: C signature of every entry point (all return an int cudaError_t)
 SIGNATURES = {
     "dash_bulk_hash": (_P, _P, _P, _P, _P, _I64, _P),
-    "dash_fingerprint_probe": (_P, _P, _I64, _I, _P, _P, _P, _P, _I64,
-                               _P, _P, _P, _P, _P),
-    "dash_fused_probe": (_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _I,
-                         _P, _P, _P, _P, _P, _P, _I64, _P, _P, _P),
+    "dash_fingerprint_probe": (_P, _P, _I64, _I, _P, _P, _P, _P, _I64, _P, _P),
+    "dash_fused_probe": (_P, _P, _P, _P, _P, _P, _P, _I64, _P, _P),
     "dash_noop_launch": (_P,),
+    "dash_latency_chase": (_P, _I64, _P, _P),
 }
 
 _lib = None
@@ -141,5 +140,6 @@ def same_device(ref, *ts) -> None:
 
 
 def stream(t) -> int:
-    """Handle of PyTorch's current stream on ``t``'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """Handle of PyTorch's current stream on ``t``'s CUDA device, read the
+    way PyTorch's own kernel launchers read it (no Stream object built)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)

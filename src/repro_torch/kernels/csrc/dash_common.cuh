@@ -1,4 +1,5 @@
-// Device functions shared by the Dash kernels (hashmix.cu, probe.cu, fused.cu).
+// Device functions and launch helpers shared by the Dash kernels (hashmix.cu,
+// probe.cu, fused.cu).
 //
 // hash_pair is the port of repro.core.hashing.hash_pair: murmur3 fmix32 of
 // lo ^ seed, a boost-style combine with fmix32(hi + seed), then fmix32 again,
@@ -35,6 +36,18 @@ __device__ __forceinline__ uint32_t hash_pair(uint32_t hi, uint32_t lo,
 
 inline unsigned int blocks_for(long long n) {
   return static_cast<unsigned int>((n + THREADS - 1) / THREADS);
+}
+
+// Streaming multiprocessors of the current device (132 on an H100 SXM),
+// read once per process.
+inline int sm_count() {
+  static const int count = [] {
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n > 0 ? n : 1;
+  }();
+  return count;
 }
 
 }  // namespace dash

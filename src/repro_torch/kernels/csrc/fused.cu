@@ -17,111 +17,168 @@
 // fp plane when fingerprints are off and so misses nearly every key; this
 // kernel follows the per-key search semantics instead.
 //
-// Bound on the H100: launch latency at the serving tick's size. A 256-lane
-// tick touches well under 0.2 MB (a few 32-byte sectors per bucket row), so
-// the bytes take a fraction of a microsecond and the fixed cost of a launch
-// dominates. The design keeps it to one launch per tick, one thread per lane,
-// and exits a lane at its first hit.
+// Bound on the H100: latency, not bytes. A 256-lane serving tick needs about
+// 0.1 MB of HBM traffic (0.03 us at 3.35 TB/s), but each lane's answer sits
+// behind dependent loads: its lane words name the rows, and only a row's
+// words name the value. The shortest chain is an empty launch plus three
+// dependent HBM round trips (lane words -> every candidate row -> value),
+// with the 430 MB planes cold in the 50 MB L2. One thread per lane walking
+// its rows one after another (meta, then fp, then keys slot by slot, then
+// the next row) made that 10-12 round trips on one SM.
+//
+// The design cuts the chain to those three round trips:
+//  - a half-warp of 16 threads serves one lane, thread j owning slot
+//    position j, so a 256-lane tick spreads over 32 blocks on 32 SMs;
+//  - once the lane words are in, each thread issues every load of the lane's
+//    candidate rows before any compare: meta, its fp byte and its key_hi and
+//    key_lo words of the target, probing and stash rows (4 rows at once;
+//    configs with more stash rows loop over groups of 4), plus
+//    stash_active[seg]. Rows past the stash gate or at or past BT load from
+//    clamped in-bounds addresses and are masked afterwards;
+//  - the first hit in visit order (rows b, pb, stash 0.., then slots) comes
+//    from a half-warp __ballot_sync per row and __ffs; only the winning
+//    slot's thread loads the value and writes (found, value), and a lane
+//    with no hit is written by its thread 0.
 #include "dash_common.cuh"
 
 namespace {
 
-struct Planes {
+// Plane pointers and geometry, validated and laid out by the Python wrapper
+// (kernels/fused.py:_Planes mirrors this struct field for field).
+struct FusedPlanes {
   const uint8_t* fp;
   const uint32_t* meta;
   const uint32_t* key_hi;
   const uint32_t* key_lo;
   const uint32_t* val;
+  const int32_t* stash_active;
+  long long num_segments;
   int bt;
   int sl;
+  int nb;
+  int ns;
   int use_fp;
 };
 
-// First matching slot of one bucket row; returns true and sets *out on a hit.
-__device__ __forceinline__ bool row_hit(const Planes& p, long long seg, int row,
-                                        int qfp, uint32_t qhi, uint32_t qlo,
-                                        uint32_t* out) {
-  if (row >= p.bt) return false;
-  const long long r = seg * p.bt + row;
-  const uint32_t alloc = p.meta[r] & dash::SLOT_MASK;
-  if (alloc == 0) return false;
-  const uint8_t* fr = p.fp + r * 16;
-  const uint32_t* kh = p.key_hi + r * p.sl;
-  const uint32_t* kl = p.key_lo + r * p.sl;
-  for (int j = 0; j < p.sl; ++j) {
-    if (!((alloc >> j) & 1u)) continue;
-    if (p.use_fp && static_cast<int>(fr[j]) != qfp) continue;
-    if (kh[j] == qhi && kl[j] == qlo) {
-      *out = p.val[r * p.sl + j];
-      return true;
-    }
-  }
-  return false;
-}
+constexpr int GROUP = 16;   // threads per lane: one per slot position (SL <= 16)
+constexpr int ROWS = 4;     // candidate rows whose loads are in flight together
+constexpr int BLOCK = 128;  // 8 lanes per block
 
-__global__ void fused_probe_kernel(Planes p, const int32_t* __restrict__ stash_active,
-                                   long long num_segments, int nb, int ns,
-                                   const int32_t* __restrict__ q_seg,
-                                   const int32_t* __restrict__ q_fp,
-                                   const int32_t* __restrict__ q_b,
-                                   const int32_t* __restrict__ q_pb,
-                                   const uint32_t* __restrict__ q_hi,
-                                   const uint32_t* __restrict__ q_lo, long long n,
-                                   int32_t* __restrict__ found,
-                                   uint32_t* __restrict__ val_out) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const long long seg = q_seg[i];
-  const int b = q_b[i];
-  uint32_t v = 0;
-  bool hit = false;
-  if (b >= 0 && seg >= 0 && seg < num_segments) {
-    const int qfp = q_fp[i];
-    const uint32_t qhi = q_hi[i];
-    const uint32_t qlo = q_lo[i];
-    const int pb = q_pb[i] < 0 ? 0 : q_pb[i];  // the reference clips row ids
-    hit = row_hit(p, seg, b, qfp, qhi, qlo, &v) ||
-          row_hit(p, seg, pb, qfp, qhi, qlo, &v);
-    int active = stash_active[seg];
-    active = active < ns ? active : ns;
-    for (int s = 0; !hit && s < active; ++s) {
-      hit = row_hit(p, seg, nb + s, qfp, qhi, qlo, &v);
+__global__ void __launch_bounds__(BLOCK)
+    fused_probe_kernel(const FusedPlanes p, const int32_t* __restrict__ q_seg,
+                       const int32_t* __restrict__ q_fp, const int32_t* __restrict__ q_b,
+                       const int32_t* __restrict__ q_pb,
+                       const uint32_t* __restrict__ q_hi,
+                       const uint32_t* __restrict__ q_lo, long long n,
+                       int32_t* __restrict__ found, uint32_t* __restrict__ val_out) {
+  const long long lane = (static_cast<long long>(blockIdx.x) * BLOCK + threadIdx.x) / GROUP;
+  if (lane >= n) return;  // a half-warp shares its lane, so it leaves whole
+  const int j = static_cast<int>(threadIdx.x % GROUP);
+  const unsigned shift = threadIdx.x & 16u;  // this lane's half of the warp
+  const unsigned half = 0xFFFFu << shift;
+
+  // Round trip 1: the lane's words (one broadcast load each for the group).
+  const int seg_in = q_seg[lane];
+  const int b = q_b[lane];
+  const int pb_in = q_pb[lane];
+  const int qfp = q_fp[lane];
+  const uint32_t qhi = q_hi[lane];
+  const uint32_t qlo = q_lo[lane];
+  const bool live = b >= 0 && seg_in >= 0 && seg_in < p.num_segments;
+  const long long seg = live ? seg_in : 0;
+  const long long base = seg * p.bt;
+  const int pb = pb_in < 0 ? 0 : pb_in;  // the reference clips row ids
+  const int slot = j < p.sl ? j : p.sl - 1;
+
+  // Round trip 2: the stash gate and every candidate row's words of this
+  // slot position, all issued before the first compare.
+  const int active = min(__ldg(p.stash_active + seg), p.ns);
+  const int visits = 2 + p.ns;
+  long long win_row = -1;
+  int win_slot = 0;
+  for (int g = 0; g < visits; g += ROWS) {
+    long long r[ROWS];
+    uint32_t m[ROWS], f[ROWS], kh[ROWS], kl[ROWS];
+#pragma unroll
+    for (int k = 0; k < ROWS; ++k) {
+      const int v = g + k;
+      const int row = v == 0 ? b : v == 1 ? pb : p.nb + v - 2;
+      r[k] = base + min(max(row, 0), p.bt - 1);
+      m[k] = __ldg(p.meta + r[k]);
+      f[k] = __ldg(p.fp + r[k] * 16 + slot);
+      kh[k] = __ldg(p.key_hi + r[k] * p.sl + slot);
+      kl[k] = __ldg(p.key_lo + r[k] * p.sl + slot);
+    }
+#pragma unroll
+    for (int k = 0; k < ROWS; ++k) {
+      const int v = g + k;
+      const int row = v == 0 ? b : v == 1 ? pb : p.nb + v - 2;
+      const bool gate = v < visits && row < p.bt && (v < 2 || v - 2 < active);
+      const bool hit = live && gate && j < p.sl &&
+                       (((m[k] & dash::SLOT_MASK) >> j) & 1u) &&
+                       (!p.use_fp || static_cast<int>(f[k]) == qfp) && kh[k] == qhi &&
+                       kl[k] == qlo;
+      const unsigned bits = (__ballot_sync(half, hit) & half) >> shift;
+      if (win_row < 0 && bits != 0) {
+        win_row = r[k];
+        win_slot = __ffs(bits) - 1;
+      }
     }
   }
-  found[i] = hit ? 1 : 0;
-  val_out[i] = hit ? v : 0u;
+
+  // Round trip 3: the winning slot's value.
+  if (win_row >= 0) {
+    if (j == win_slot) {
+      found[lane] = 1;
+      val_out[lane] = __ldg(p.val + win_row * p.sl + win_slot);
+    }
+  } else if (j == 0) {
+    found[lane] = 0;
+    val_out[lane] = 0u;
+  }
 }
 
 __global__ void noop_kernel() {}
 
+// One thread follows a chain of dependent loads: the floor each of
+// fused_probe's round trips stands on.
+__global__ void chase_kernel(const uint32_t* __restrict__ next, long long steps,
+                             uint32_t* __restrict__ out) {
+  uint32_t i = 0;
+  for (long long s = 0; s < steps; ++s) i = __ldcg(next + i);
+  *out = i;
+}
+
 }  // namespace
 
-extern "C" int dash_fused_probe(const void* fp, const void* meta, const void* key_hi,
-                                const void* key_lo, const void* val,
-                                const void* stash_active, long long num_segments,
-                                int bt, int sl, int nb, int ns, int use_fp,
-                                const void* q_seg, const void* q_fp, const void* q_b,
-                                const void* q_pb, const void* q_hi, const void* q_lo,
-                                long long n, void* found, void* val_out,
-                                void* stream) {
+// out: (2, n) int32, found then value.
+extern "C" int dash_fused_probe(const void* planes, const void* q_seg, const void* q_fp,
+                                const void* q_b, const void* q_pb, const void* q_hi,
+                                const void* q_lo, long long n, void* out, void* stream) {
   if (n > 0) {
-    Planes p{static_cast<const uint8_t*>(fp),     static_cast<const uint32_t*>(meta),
-             static_cast<const uint32_t*>(key_hi), static_cast<const uint32_t*>(key_lo),
-             static_cast<const uint32_t*>(val),    bt, sl, use_fp};
-    fused_probe_kernel<<<dash::blocks_for(n), dash::THREADS, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-        p, static_cast<const int32_t*>(stash_active), num_segments, nb, ns,
-        static_cast<const int32_t*>(q_seg), static_cast<const int32_t*>(q_fp),
-        static_cast<const int32_t*>(q_b), static_cast<const int32_t*>(q_pb),
-        static_cast<const uint32_t*>(q_hi), static_cast<const uint32_t*>(q_lo), n,
-        static_cast<int32_t*>(found), static_cast<uint32_t*>(val_out));
+    const unsigned int grid = static_cast<unsigned int>((n * GROUP + BLOCK - 1) / BLOCK);
+    fused_probe_kernel<<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+        *static_cast<const FusedPlanes*>(planes), static_cast<const int32_t*>(q_seg),
+        static_cast<const int32_t*>(q_fp), static_cast<const int32_t*>(q_b),
+        static_cast<const int32_t*>(q_pb), static_cast<const uint32_t*>(q_hi),
+        static_cast<const uint32_t*>(q_lo), n, static_cast<int32_t*>(out),
+        static_cast<uint32_t*>(out) + n);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// An empty launch on the same stream: the floor a launch-bound kernel such as
-// fused_probe at tick size is measured against.
+// An empty launch on the same stream: the fixed cost under every kernel.
 extern "C" int dash_noop_launch(void* stream) {
   noop_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `steps` dependent loads through the permutation `next` (u32 indices, one
+// cycle over a buffer far larger than L2), by one thread; out gets the last
+// index so the chain cannot be elided.
+extern "C" int dash_latency_chase(const void* next, long long steps, void* out,
+                                  void* stream) {
+  chase_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(next), steps, static_cast<uint32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -31,6 +31,9 @@ config.)
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from repro_torch.core import engine, hashing, layout
@@ -152,6 +155,48 @@ def fused_probe_plain(fp, meta, key_hi, key_lo, val, stash_active,
     return found.to(torch.int32), value
 
 
+class _Planes(ctypes.Structure):
+    """The kernel's plane record (``FusedPlanes`` in ``csrc/fused.cu``)."""
+    _fields_ = [("fp", ctypes.c_void_p), ("meta", ctypes.c_void_p),
+                ("key_hi", ctypes.c_void_p), ("key_lo", ctypes.c_void_p),
+                ("val", ctypes.c_void_p), ("stash_active", ctypes.c_void_p),
+                ("num_segments", ctypes.c_longlong), ("bt", ctypes.c_int),
+                ("sl", ctypes.c_int), ("nb", ctypes.c_int), ("ns", ctypes.c_int),
+                ("use_fp", ctypes.c_int)]
+
+
+_PLANES = (("fp", torch.uint8, 3), ("meta", torch.int32, 2),
+           ("key_hi", torch.int32, 3), ("key_lo", torch.int32, 3),
+           ("val", torch.int32, 3), ("stash_active", torch.int32, 1))
+
+
+def _plane_key(planes):
+    """Everything the plane checks read: pointer, shape, dtype, layout and
+    device of each plane."""
+    return tuple((t.data_ptr(), t.shape, t.dtype, t.is_contiguous(), t.device)
+                 for t in planes)
+
+
+@functools.lru_cache(maxsize=16)
+def _checked_planes(key, nb: int, ns: int, use_fp: bool) -> _Planes:
+    """Validate a plane set once (by its :func:`_plane_key`) and return the
+    kernel's record of it; an edit of any plane's pointer, shape, dtype or
+    layout gives a new key and a new check."""
+    for (ptr, shape, dtype, contiguous, device), (name, want, ndim) in zip(key, _PLANES):
+        if dtype != want or len(shape) != ndim:
+            raise TypeError(f"{name}: expected {ndim}-d {want}, got {len(shape)}-d {dtype}")
+        if not contiguous:
+            raise ValueError(f"{name}: must be contiguous")
+        if device != key[0][4]:
+            raise ValueError(f"{name} on {device}, expected {key[0][4]}")
+    S, BT, SL = key[2][1]
+    if (key[0][1] != (S, BT, 16) or key[1][1] != (S, BT) or key[3][1] != key[2][1]
+            or key[4][1] != key[2][1] or key[5][1] != (S,) or SL > 16
+            or not 0 <= nb <= nb + ns <= BT):
+        raise ValueError("fused_probe: plane shapes disagree")
+    return _Planes(*(k[0] for k in key), S, BT, SL, nb, ns, int(use_fp))
+
+
 def fused_probe(fp, meta, key_hi, key_lo, val, stash_active,
                 q_seg, q_fp, q_b, q_pb, q_hi, q_lo, *, nb: int, ns: int,
                 use_fp: bool):
@@ -159,36 +204,32 @@ def fused_probe(fp, meta, key_hi, key_lo, val, stash_active,
     (S, BT), key_hi/key_lo/val (S, BT, SL) and stash_active (S,) int32) and
     (N,) int32 lanes; see :func:`fused_probe_plain`."""
     global LAUNCHES
-    _build.require(fp, "fp", torch.uint8, 3)
-    _build.require(meta, "meta", torch.int32, 2)
-    _build.require(key_hi, "key_hi", torch.int32, 3)
-    _build.require(key_lo, "key_lo", torch.int32, 3, like=key_hi)
-    _build.require(val, "val", torch.int32, 3, like=key_hi)
-    _build.require(stash_active, "stash_active", torch.int32, 1)
-    S, BT, SL = key_hi.shape
-    if (fp.shape != (S, BT, 16) or meta.shape != (S, BT)
-            or stash_active.shape != (S,) or not 0 <= nb <= nb + ns <= BT):
-        raise ValueError("fused_probe: plane shapes disagree")
-    _build.require(q_seg, "q_seg", torch.int32, 1)
-    for name, t in (("q_fp", q_fp), ("q_b", q_b), ("q_pb", q_pb),
-                    ("q_hi", q_hi), ("q_lo", q_lo)):
-        _build.require(t, name, torch.int32, 1, like=q_seg)
-    _build.same_device(fp, meta, key_hi, stash_active, q_seg)
-    if fp.device.type == "cpu":
-        return fused_probe_plain(fp, meta, key_hi, key_lo, val, stash_active,
-                                 q_seg, q_fp, q_b, q_pb, q_hi, q_lo,
+    planes = _checked_planes(_plane_key((fp, meta, key_hi, key_lo, val, stash_active)),
+                             nb, ns, use_fp)
+    lanes = (q_seg, q_fp, q_b, q_pb, q_hi, q_lo)
+    shape, device = q_seg.shape, fp.device
+    if len(shape) != 1 or any(t.dtype != torch.int32 or t.shape != shape or t.device != device
+                              or not t.is_contiguous() for t in lanes):
+        _check_lanes(lanes, device)
+    if device.type == "cpu":
+        return fused_probe_plain(fp, meta, key_hi, key_lo, val, stash_active, *lanes,
                                  nb=nb, ns=ns, use_fp=use_fp)
     _build.require_cuda(fp)
-    found, value = torch.empty_like(q_seg), torch.empty_like(q_seg)
-    lib = _build.load()
-    _build.check(lib.dash_fused_probe(
-        fp.data_ptr(), meta.data_ptr(), key_hi.data_ptr(), key_lo.data_ptr(),
-        val.data_ptr(), stash_active.data_ptr(), S, BT, SL, nb, ns, int(use_fp),
-        q_seg.data_ptr(), q_fp.data_ptr(), q_b.data_ptr(), q_pb.data_ptr(),
-        q_hi.data_ptr(), q_lo.data_ptr(), q_seg.numel(), found.data_ptr(),
-        value.data_ptr(), _build.stream(fp)), "fused_probe")
+    out = torch.empty((2, shape[0]), dtype=torch.int32, device=device)
+    _build.check(_build.load().dash_fused_probe(
+        ctypes.addressof(planes), *(t.data_ptr() for t in lanes), shape[0],
+        out.data_ptr(), _build.stream(fp)), "fused_probe")
     LAUNCHES += 1
-    return found, value
+    return out[0], out[1]
+
+
+def _check_lanes(lanes, device):
+    """Raise, naming the first lane tensor the kernel cannot take."""
+    names = ("q_seg", "q_fp", "q_b", "q_pb", "q_hi", "q_lo")
+    _build.require(lanes[0], names[0], torch.int32, 1)
+    for name, t in zip(names[1:], lanes[1:]):
+        _build.require(t, name, torch.int32, 1, like=lanes[0])
+    raise ValueError(f"lanes on {lanes[0].device}, planes on {device}")
 
 
 def _probe_state(cfg: DashConfig, state: DashState, q_seg, q_fp, q_b, q_pb,

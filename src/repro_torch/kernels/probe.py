@@ -70,12 +70,10 @@ def fingerprint_probe(fp, meta, q_seg, q_fp, q_b, q_pb):
     _build.require_cuda(fp)
     if fp.data_ptr() % 16:
         raise ValueError("fp plane must be 16-byte aligned (rows load as uint4)")
-    outs = [torch.empty_like(q_seg) for _ in range(4)]
-    lib = _build.load()
-    _build.check(lib.dash_fingerprint_probe(
+    out = torch.empty((4, q_seg.numel()), dtype=torch.int32, device=fp.device)
+    _build.check(_build.load().dash_fingerprint_probe(
         fp.data_ptr(), meta.data_ptr(), meta.shape[0], meta.shape[1],
         q_seg.data_ptr(), q_fp.data_ptr(), q_b.data_ptr(), q_pb.data_ptr(),
-        q_seg.numel(), *(o.data_ptr() for o in outs), _build.stream(fp)),
-        "fingerprint_probe")
+        q_seg.numel(), out.data_ptr(), _build.stream(fp)), "fingerprint_probe")
     LAUNCHES += 1
-    return tuple(outs)
+    return tuple(out)

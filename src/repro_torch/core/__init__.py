@@ -3,6 +3,7 @@
 Public API:
     DashConfig           static configuration / feature flags
     DashEH               host-facing extendible-hashing table
+    DashLH               host-facing linear-hashing table
     make_state           raw state constructor
     engine               batched ops (insert/search/delete/update)
 
@@ -11,13 +12,14 @@ Tables and states live on the card unless ``device`` names another
 """
 from .layout import (DashConfig, DashState, make_state, load_factor,
                      INSERTED, EXISTS, NEED_SPLIT, DROPPED, NOT_FOUND)
-from .table import DashEH, DashTable, TableFullError
-from . import (bucket, dash_eh, engine, epoch, hashing, layout, recovery, smo)
+from .table import DashEH, DashLH, DashTable, TableFullError
+from . import (bucket, dash_eh, dash_lh, engine, epoch, hashing, layout,
+               recovery, smo)
 
 __all__ = [
     "DashConfig", "DashState", "make_state", "load_factor",
-    "DashEH", "DashTable", "TableFullError",
+    "DashEH", "DashLH", "DashTable", "TableFullError",
     "INSERTED", "EXISTS", "NEED_SPLIT", "DROPPED", "NOT_FOUND",
-    "bucket", "dash_eh", "engine", "epoch", "hashing", "layout", "recovery",
+    "bucket", "dash_eh", "dash_lh", "engine", "epoch", "hashing", "layout", "recovery",
     "smo",
 ]

@@ -1,4 +1,4 @@
-"""Device-parallel SMO engine: vectorized segment rebuild + bulk EH split.
+"""Device-parallel SMO engine: vectorized segment rebuild + bulk SMOs.
 
 Ported from ``repro.core.smo``. A splitting segment's records are
 extracted once, partitioned by move-bit, and placed in one pass: target
@@ -13,7 +13,11 @@ The reference ``vmap``s the rebuild over the K splits of one pressure
 round; here the K splits are a leading batch axis and every group id is
 offset by its split, so one sort ranks all of them. All K splits publish
 one directory update, computed from an (S,) old-segment -> split lookup
-rather than a (K, dir_size) mask. Planes are updated IN PLACE.
+rather than a (K, dir_size) mask. The same rebuild serves EH splits
+(``bulk_split``), LH stride expansion (``bulk_split_next``), buddy merges
+(``bulk_merge``, directory published from an (S,) victim -> keep lookup)
+and the crash-recovery redo (``check_unique=True``). Planes are updated
+IN PLACE.
 """
 from __future__ import annotations
 
@@ -64,10 +68,10 @@ def dedupe_records(hi, lo, valid):
     """Drop all-but-first copies of duplicate (hi, lo) keys in each row of
     (K, N) records (recovery redo). Lex sort by (valid desc, hi, lo);
     duplicates are adjacent. Returns the pruned valid mask."""
-    order = torch.argsort(lo, -1, stable=True)
-    order = order.gather(-1, torch.argsort(hi.gather(-1, order), -1, stable=True))
+    order = torch.argsort(lo, dim=-1, stable=True)
+    order = order.gather(-1, torch.argsort(hi.gather(-1, order), dim=-1, stable=True))
     order = order.gather(-1, torch.argsort(
-        (~valid.gather(-1, order)).to(torch.uint8), -1, stable=True))
+        (~valid.gather(-1, order)).to(torch.uint8), dim=-1, stable=True))
     hi_s, lo_s, v_s = hi.gather(-1, order), lo.gather(-1, order), valid.gather(-1, order)
     dup = torch.zeros_like(v_s)
     dup[:, 1:] = ((hi_s[:, 1:] == hi_s[:, :-1]) & (lo_s[:, 1:] == lo_s[:, :-1])
@@ -333,11 +337,6 @@ class BulkSplitTask:
         self.n_committed = self.old_np.size
         self._ok = None
         self.stage = "phase1"
-        self.kind = "eh_bulk_split"
-
-    def describe(self) -> dict:
-        return {"kind": self.kind, "segments": int(self.old_np.size),
-                "shortfall": int(self.shortfall)}
 
     @property
     def touched(self) -> np.ndarray:
@@ -380,3 +379,166 @@ def bulk_split(cfg: DashConfig, state: DashState, old_ids, new_ids,
     while not done:
         state, done = task.pump(state)
     return state, task.n_committed
+
+
+# ---------------------------------------------------------------------------
+# bulk LH round expansion (hybrid-expansion stride, Sec. 5.2/5.3)
+# ---------------------------------------------------------------------------
+
+class BulkSplitNextTask:
+    """Staged LH stride expansion: DISPATCH (``bulk_split_next``) -> COMMIT
+    (ok read + scan-rehash fallbacks). ``R`` must respect the round and
+    pool bounds (``DashLH.make_smo_task`` plans it); ``touched`` is the
+    dirty footprint (the split sources and the new physical ids)."""
+
+    def __init__(self, cfg: DashConfig, R: int, touched=None):
+        self.cfg = cfg
+        self.R = R
+        self.shortfall = 0       # the plan never falls short: R fits the pool
+        self._ok = None
+        self._old_phys = None
+        self.stage = "dispatch"
+        self.touched = np.zeros(0, np.int32) if touched is None \
+            else np.asarray(touched, np.int32).reshape(-1)
+
+    def pump(self, state: DashState):
+        """Advance one stage. Returns (state, done)."""
+        from . import dash_lh
+        if self.stage == "dispatch":
+            state, self._ok, self._old_phys = bulk_split_next(self.cfg, state, self.R)
+            self.stage = "commit"
+            return state, False
+        if self.stage != "commit":
+            raise RuntimeError(f"task already {self.stage}")
+        ok = self._ok.cpu().numpy()
+        if not ok.all():
+            old_phys = self._old_phys.cpu().numpy()
+            for i in np.nonzero(~ok)[0]:
+                state, ok1 = dash_lh.rehash_segment_scan(self.cfg, state, int(old_phys[i]))
+                if not ok1:
+                    raise AssertionError("LH split rehash failed to refit records")
+        self.stage = "done"
+        return state, True
+
+
+def bulk_split_next(cfg: DashConfig, state: DashState, R: int):
+    """Split the R segments at Next..Next+R-1 at once and advance the packed
+    (level, Next) word once, in place — the hybrid-expansion analog of
+    allocating a whole segment-array stride. The caller guarantees R does
+    not cross a round boundary and the pool holds R new segments. Returns
+    (state, ok (R,), old_phys (R,)); a False lane was not rebuilt (the
+    caller rehashes it by scan)."""
+    S = cfg.max_segments
+    dev = state.dir.device
+    level, nxt = (int(x) for x in layout.lh_level_next(state.lh_word))
+    round_size = (1 << cfg.lh_base_log2) << level
+    lanes = torch.arange(R, device=dev)
+    old_phys = state.lh_dir[nxt + lanes]
+    new_phys = state.watermark + lanes
+    base = min(cfg.num_stash, cfg.lh_base_stash)
+
+    # advance the packed word FIRST (the atomic publish of Sec. 5.3); the
+    # stash base reset is unconditional, matching split_next_scan — a failed
+    # lane must not keep its elevated stash_active (the scan fallback
+    # re-activates as it rehashes)
+    wrap = nxt + R >= round_size
+    state.lh_word.copy_(layout.lh_pack(torch.tensor(level + wrap),
+                                       torch.tensor(0 if wrap else nxt + R)))
+    state.lh_dir[round_size + nxt + lanes] = new_phys.to(torch.int32)
+    state.watermark.add_(R)
+    state.seg_version[new_phys] = state.gver
+    state.stash_active[old_phys.long()] = base
+    state.stash_active[new_phys] = base
+
+    hi, lo, val, vmask = _extract(cfg, state, old_phys)
+    h1, h2 = engine.record_hashes(cfg, state, hi, lo)
+    tgt = (u32(h1) >> (cfg.lh_base_log2 + level)) & 1
+    b = layout.lh_bucket_index(cfg, h1)
+    fpv = hashing.fingerprint(h2)
+    planes, active, ok = rebuild_records(cfg, 2, base, hi, lo, val, vmask, fpv, b, tgt)
+
+    dst = torch.where(ok[:, None], torch.stack([old_phys.long(), new_phys], 1),
+                      S).reshape(-1)
+    _scatter_planes(cfg, state, dst,
+                    {k: v.reshape((2 * R,) + v.shape[2:]) for k, v in planes.items()})
+    live = (dst < S).nonzero()[:, 0]
+    state.stash_active[dst[live]] = active.reshape(-1)[live].to(torch.int32)
+    state.n_splits.add_(R)
+    return state, ok, old_phys
+
+
+# ---------------------------------------------------------------------------
+# bulk buddy merge (shrink SMO of Sec. 4.7)
+# ---------------------------------------------------------------------------
+
+def bulk_merge(cfg: DashConfig, state: DashState, keep, victim, valid):
+    """Merge K disjoint buddy pairs at once, in place: both segments'
+    records rebuild into ``keep``, the victim planes are cleared, and all
+    directory updates publish together. Returns (state, ok (K,)); a False
+    lane was not committed (the caller falls back to the scan merge)."""
+    S = cfg.max_segments
+    K = keep.shape[0]
+    if K == 0:
+        return state, valid
+    kc, vc = keep.long().clamp(0, S - 1), victim.long().clamp(0, S - 1)
+    hi, lo, val, vmask = (torch.cat([x, y], 1) for x, y in
+                          zip(_extract(cfg, state, keep), _extract(cfg, state, victim)))
+    h1, h2 = engine.record_hashes(cfg, state, hi, lo)
+    planes, active, ok = rebuild_records(
+        cfg, 1, cfg.num_stash, hi, lo, val, vmask, hashing.fingerprint(h2),
+        layout.bucket_index(cfg, h1), torch.zeros_like(h1, dtype=torch.int64))
+
+    commit = valid & ok
+    dk = torch.where(commit, kc, S)
+    dv = torch.where(commit, vc, S)
+    _scatter_planes(cfg, state, dk, {k: v[:, 0] for k, v in planes.items()})
+    _scatter_planes(cfg, state, dv, {
+        name: torch.zeros((K,) + getattr(state, name).shape[1:],
+                          dtype=getattr(state, name).dtype, device=kc.device)
+        for name in _RECORD_PLANES})
+
+    ld = state.local_depth[kc] - 1
+    side_v = state.side_link[vc].clone()
+    # single directory publish: lane_of[victim] is the first committed lane
+    # merging that victim (K = none)
+    lane_of = torch.full((S + 1,), K, dtype=torch.int64, device=kc.device)
+    lane_of.scatter_reduce_(0, dv, torch.arange(K, device=kc.device), "amin")
+    k = lane_of[state.dir.long()]
+    state.dir.copy_(torch.where(k < K, keep[k.clamp(max=K - 1)].to(torch.int32),
+                                state.dir))
+    _set_where(state.local_depth, kc, ld, commit)
+    _set_where(state.side_link, kc, side_v, commit)
+    _set_where(state.seg_state, vc, SEG_NORMAL, commit)
+    _set_where(state.stash_active, kc, active[:, 0].to(torch.int32), commit)
+    return state, ok | ~valid
+
+
+def segment_record_set(cfg: DashConfig, state: DashState, seg: int):
+    """Sorted (hi, lo, val) uint32 tuples of one segment's live records —
+    the SMO engine's logical-equivalence contract (slot layout may differ
+    between the rebuild and the scan; the record set must not)."""
+    hi, lo, val, valid = engine.segment_records(cfg, state, seg)
+    cols = [u32(x[valid]).tolist() for x in (hi, lo, val)]
+    return sorted(zip(*cols))
+
+
+# ---------------------------------------------------------------------------
+# host-side planning: vectorized buddy-pair scan
+# ---------------------------------------------------------------------------
+
+def find_buddy_pairs(cfg: DashConfig, dirv: np.ndarray, depths: np.ndarray):
+    """All mergeable buddy pairs in one vectorized pass over the directory
+    (numpy). A segment's buddy owns the sibling prefix at the same local
+    depth; under MSB indexing both ranges are adjacent, so one
+    ``np.unique`` over the directory + one gather finds every pair. Pairs
+    are disjoint. Returns an (M, 2) int array of [seg, buddy], seg < buddy.
+    """
+    segs, first_idx = np.unique(dirv, return_index=True)
+    ld = depths[segs]
+    shift = cfg.dir_depth_max - ld
+    prefix = first_idx >> shift
+    sib_first = (prefix ^ 1) << shift
+    buddy = dirv[np.clip(sib_first, 0, dirv.size - 1)]
+    good = (ld > 0) & (buddy != segs) & (depths[buddy] == ld)
+    pairs = np.stack([segs[good], buddy[good]], axis=1)
+    return pairs[pairs[:, 0] < pairs[:, 1]]        # dedupe symmetric pairs

@@ -1,8 +1,10 @@
-"""Host-facing Dash tables: batch planning + split retry.
+"""Host-facing Dash tables: batch planning + split retry + lazy recovery.
 
 The card does the data-plane work (hashing, batched probes/inserts, SMOs);
 the host plays the paper's "goto retry" loop (Alg. 1 line 31): when a batch
 reports NEED_SPLIT, the host runs the SMO and retries the failed subset.
+Per-segment lazy recovery (Sec. 4.8) hooks in before every access: the
+accessing batch recovers the dirty segments it touches, all at once.
 Ported from ``repro.core.table``. Each batch's keys are hashed on the card
 (``kernels/hashmix.bulk_hash``) and its per-key segment ids looked up in the
 device directory; the host reads back only what it plans with (the largest
@@ -16,9 +18,13 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import fused, hashmix
-from . import dash_eh, engine, hashing, layout, recovery, smo
+from . import dash_eh, dash_lh, engine, hashing, layout, recovery, smo
 from .epoch import DirtyHint
 from .layout import NEED_SPLIT, DashConfig, DashState
+
+#: ``DashEH.shrink`` merges a buddy pair while its records fit in this
+#: share of one segment (the reference's default ``target_fill``)
+SHRINK_TARGET_FILL = 0.8
 
 
 class TableFullError(RuntimeError):
@@ -30,11 +36,14 @@ class DirtyTracker:
     path notes the segments it routed writes to (the same per-key segment
     ids that feed ``route_lanes``) plus whether the directory changed. The
     segments are kept as per-segment counts on the table's device, so noting
-    a batch costs no host transfer; ``drain`` reads them back."""
+    a batch costs no host transfer; ``drain`` reads them back. ``note_full``
+    marks mutations outside the version discipline (crash simulation,
+    restart), forcing the next publish to copy the whole state."""
 
     def __init__(self, num_segments: int, device):
         self._hits = torch.zeros(num_segments, dtype=torch.int32, device=device)
         self.dir = False
+        self.full = False
 
     def note_segments(self, ids):
         ids = torch.as_tensor(np.asarray(ids) if not torch.is_tensor(ids) else ids,
@@ -44,18 +53,22 @@ class DirtyTracker:
     def note_dir(self):
         self.dir = True
 
+    def note_full(self):
+        self.full = True
+
     @property
     def segments(self) -> set:
         return set(self._hits.nonzero()[:, 0].tolist())
 
     @property
     def any(self) -> bool:
-        return self.dir or bool(self._hits.any())
+        return self.full or self.dir or bool(self._hits.any())
 
     def drain(self) -> DirtyHint:
-        hint = DirtyHint(self.segments, self.dir)
+        hint = DirtyHint(self.segments, self.dir, self.full)
         self._hits.zero_()
         self.dir = False
+        self.full = False
         return hint
 
 
@@ -111,6 +124,8 @@ class DashTable:
         self.lazy_recovery = lazy_recovery
         self.smo_mode = smo_mode
         self.recovered_segments = 0   # stat: lazy recoveries performed
+        self.insert_rounds = 0        # stat: insert dispatches (retry rounds included)
+        self.free_segments: list = []  # merged-away ids, recycled by splits
         self.dirty = DirtyTracker(cfg.max_segments, self.device)
 
     # -- key plumbing --------------------------------------------------------
@@ -177,8 +192,15 @@ class DashTable:
         """Lazy per-segment recovery over precomputed touched segment ids."""
         if not self.lazy_recovery:
             return
+
+        def note(segs, affected):
+            # recovery may continue an in-flight SMO: the side-linked
+            # neighbor (either direction) and the directory are fair game
+            self.dirty.note_segments(affected)
+            self.dirty.note_dir()
+
         self.state, recovered = recovery.lazy_recover_touched(
-            self.cfg, self.mode, self.state, touched)
+            self.cfg, self.mode, self.state, touched, note=note)
         self.recovered_segments += len(recovered)
 
     # -- public ops -----------------------------------------------------------
@@ -211,6 +233,7 @@ class DashTable:
         job.pending = pending[statuses == NEED_SPLIT]
         job.first = False
         job.rounds += 1
+        self.insert_rounds += 1
         return bool(activated)
 
     def pressure_hints(self, job: InsertJob) -> np.ndarray:
@@ -262,6 +285,28 @@ class DashTable:
             self.cfg, self.mode, self.state, hi, lo, self._values(values),
             batching=batching, capacity=capacity)
         return statuses.cpu().numpy()
+
+    # -- lifecycle -------------------------------------------------------------
+
+    def graceful_shutdown(self):
+        """Set the clean-shutdown marker: the next restart skips recovery."""
+        self.state.clean.fill_(True)
+
+    def restart(self):
+        """Instant recovery (Sec. 4.8): O(1) work, constant in data size —
+        one scalar read and at most one scalar write. Returns the work
+        record (``clean``, ``seconds``)."""
+        self.state, work = recovery.instant_restart(self.state)
+        self.dirty.note_full()   # lazy recovery will rewrite at first touch
+        return work
+
+    def crash(self, rng: np.random.Generator | None = None, **kw):
+        """Leave crash artifacts in the live state (``recovery.simulate_crash``
+        keywords). The surgery rewrites planes WITHOUT version bumps, so the
+        next publish must not trust the version diff."""
+        self.dirty.note_full()
+        self.state = recovery.simulate_crash(self.cfg, self.mode, self.state,
+                                             rng or np.random.default_rng(0), **kw)
 
     # -- stats ----------------------------------------------------------------
 
@@ -317,15 +362,23 @@ class DashEH(DashTable):
             raise TableFullError("directory depth exhausted")
 
     def make_smo_task(self, seg_hint):
-        """Bulk EH pressure plan: allocate every new id up front off the
-        pool watermark so all pressured segments split in one staged
-        pipeline with one directory publish."""
+        """Bulk EH pressure plan: allocate every new id up front (recycled
+        merge victims first, then the pool watermark) so all pressured
+        segments split in one staged pipeline with one directory publish."""
         if seg_hint is None:
             return None                 # EH ignores stash-activation signals
         segs = [int(s) for s in np.asarray(seg_hint).reshape(-1)]
         self._check_depth(segs)
         wm = self.n_segments
-        new_ids = list(range(wm, min(wm + len(segs), self.cfg.max_segments)))
+        new_ids = []
+        for _ in segs:
+            if self.free_segments:
+                new_ids.append(self.free_segments.pop())
+            elif wm < self.cfg.max_segments:
+                new_ids.append(wm)
+                wm += 1
+            else:
+                break
         if not new_ids:
             raise TableFullError("segment pool exhausted")
         return smo.BulkSplitTask(self.cfg, segs[:len(new_ids)], new_ids,
@@ -343,19 +396,123 @@ class DashEH(DashTable):
             self._pump_smo(task)
 
     def _on_pressure_scalar(self, segs):
-        """Reference path: one scan-rehash SMO per segment."""
+        """Reference path: one scan-rehash SMO per segment, recycled ids
+        first. (The reference counts a recycled id against the watermark
+        too, and so can report the pool exhausted early.)"""
         wm = self.n_segments
         for seg in segs:
-            if wm >= self.cfg.max_segments:
+            if self.free_segments:
+                new_id = self.free_segments.pop()
+            elif wm < self.cfg.max_segments:
+                new_id, wm = wm, wm + 1
+            else:
                 raise TableFullError("segment pool exhausted")
-            self.dirty.note_segments([seg, wm])
+            self.dirty.note_segments([seg, new_id])
             self.dirty.note_dir()
             self.state, ok = dash_eh.split_segment(self.cfg, self.state, seg,
-                                                   impl="scan")
+                                                   new_id, impl="scan")
             if not ok:
                 raise AssertionError("split rehash failed to refit records")
-            wm += 1
 
     @property
     def global_depth(self) -> int:
         return int(self.state.global_depth)
+
+    def shrink(self) -> int:
+        """Merge buddy segment pairs while their combined records fit under
+        ``SHRINK_TARGET_FILL`` of one segment (paper Sec. 4.7: merge on low
+        load factor). Freed ids are recycled by later splits. Returns merges.
+
+        Each round plans every fitting pair from one buddy-pair scan and one
+        counts pass, and the bulk path merges all of them in one call (the
+        reference merges a round in fixed chunks of 8 pairs, which its jit
+        needs and which gives the same state: the pairs are disjoint);
+        cascading merges land in the next round."""
+        cap = int(self.cfg.seg_capacity * SHRINK_TARGET_FILL)
+        use_bulk = self.smo_task_eligible()
+        merges = 0
+        while True:
+            counts = self._segment_counts()
+            dirv = self.state.dir.cpu().numpy()
+            depths = self.state.local_depth.cpu().numpy()
+            pairs = smo.find_buddy_pairs(self.cfg, dirv, depths)
+            if pairs.size:
+                pairs = pairs[counts[pairs[:, 0]] + counts[pairs[:, 1]] <= cap]
+            if pairs.size == 0:
+                return merges
+            c0, c1 = counts[pairs[:, 0]], counts[pairs[:, 1]]
+            victim = np.where(c0 <= c1, pairs[:, 0], pairs[:, 1])
+            keep = np.where(c0 <= c1, pairs[:, 1], pairs[:, 0])
+            self.dirty.note_segments(pairs)
+            self.dirty.note_dir()
+            if use_bulk:
+                kt, vt = (torch.from_numpy(x.astype(np.int32)).to(self.device)
+                          for x in (keep, victim))
+                self.state, ok = smo.bulk_merge(
+                    self.cfg, self.state, kt, vt,
+                    torch.ones(keep.size, dtype=torch.bool, device=self.device))
+                redo = np.nonzero(~ok.cpu().numpy())[0]
+            else:
+                redo = range(keep.size)
+            for i in redo:
+                self.state, ok1 = dash_eh.merge_segments_scan(
+                    self.cfg, self.state, int(keep[i]), int(victim[i]))
+                if not ok1:
+                    raise AssertionError("merge failed to refit records")
+            self.free_segments.extend(int(v) for v in victim)
+            merges += pairs.shape[0]
+
+    def _segment_counts(self) -> np.ndarray:
+        """Records per segment, from the packed bucket counts."""
+        return layout.meta_count(self.state.meta).sum(1).cpu().numpy()
+
+
+class DashLH(DashTable):
+    """Dash linear hashing (paper Sec. 5)."""
+
+    mode = "lh"
+
+    #: bulk expansion stride (paper Sec. 5.2 hybrid expansion: grow by a
+    #: segment-array stride, not one segment — see
+    #: dash_lh.hybrid_expansion_directory)
+    expansion_stride = 8
+
+    def _check_headroom(self):
+        """(watermark, Next, round size) after the pool/round bound checks
+        the bulk and scalar paths share."""
+        cfg = self.cfg
+        wm = self.n_segments
+        if wm >= cfg.max_segments:
+            raise TableFullError("segment pool exhausted")
+        level, nxt = (int(x) for x in layout.lh_level_next(self.state.lh_word))
+        round_size = (1 << cfg.lh_base_log2) << level
+        if round_size + nxt >= cfg.max_segments:
+            raise TableFullError("lh directory exhausted")
+        return wm, nxt, round_size
+
+    def make_smo_task(self, seg_hint=None):
+        """Bulk stride expansion plan: split Next..Next+R-1 in one staged
+        SMO, capped at the round boundary and the pool/directory headroom.
+        LH pressure ignores the segment hint (it always splits at Next)."""
+        cfg = self.cfg
+        wm, nxt, round_size = self._check_headroom()
+        R = max(1, min(self.expansion_stride, round_size - nxt,
+                       cfg.max_segments - wm,
+                       cfg.max_segments - (round_size + nxt)))
+        old_phys = self.state.lh_dir[nxt:nxt + R].cpu().numpy()
+        return smo.BulkSplitNextTask(
+            cfg, R, touched=np.concatenate([old_phys, wm + np.arange(R)]))
+
+    def _on_pressure(self, seg_hint):
+        if not self.smo_task_eligible():
+            wm, nxt, _ = self._check_headroom()
+            self.dirty.note_segments([int(self.state.lh_dir[nxt]), wm])
+            self.state, ok = dash_lh.split_next_scan(self.cfg, self.state)
+            if not ok:
+                raise AssertionError("LH split rehash failed to refit records")
+            return
+        self._pump_smo(self.make_smo_task(seg_hint))
+
+    @property
+    def active_segments(self) -> int:
+        return dash_lh.lh_active_segments(self.cfg, self.state)

@@ -17,6 +17,13 @@ def ref_planes(ref_state) -> dict:
     return {k: np.asarray(v) for k, v in ref_state._asdict().items()}
 
 
+def ref_copy(ref_state):
+    """A fresh copy of a reference state (the reference's tables donate
+    their state to their jitted ops)."""
+    import jax.numpy as jnp
+    return type(ref_state)(*(jnp.array(np.asarray(x)) for x in ref_state))
+
+
 def to_port(ref_cfg, ref_state, device="cpu"):
     return interop.state_from_numpy(port_cfg(ref_cfg), ref_planes(ref_state), device)
 

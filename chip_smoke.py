@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of Dash (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--keys N] [--lh-keys N]
+    python3 chip_smoke.py [--keys N] [--lh-keys N] [--fe-keys N]
 
 Phases, each printed on its own line and each able to fail the run:
 
@@ -14,7 +14,11 @@ Phases, each printed on its own line and each able to fail the run:
      stream (stride splits, both read plans, deletes, updates); crash
      streams (EH with an interrupted split, and LH: crash, restart, lazy
      recovery on reads, inserts of live keys answer EXISTS); a shrink
-     stream (80 % deletes, shrink, refills that recycle freed ids);
+     stream (80 % deletes, shrink, refills that recycle freed ids); the
+     CPU tests' mixed frontend stream through DashFrontend over DashEH and
+     over DashLH, with fused and with routed reads (per-op outcomes,
+     ``stats()`` apart from the seconds, and the tables equal); a
+     pointer-mode stream (2-word keys in a key heap);
   3b. ``fused_probe`` and ``fingerprint_probe`` against their plain
      versions on seeded hostile inputs (``kernels/edges.py``): first-hit
      order, fingerprint collisions, the stash gate, out-of-range rows and
@@ -42,6 +46,18 @@ Phases, each printed on its own line and each able to fail the run:
      ``restart()``, the first 1M-key read batch with its lazy recovery,
      every answer against the ground truth until every segment has
      recovered, then a second crash recovered eagerly by ``recover_all``;
+  7b. the serving frontend at full width: a fresh DashEH in the main
+     path's geometry loaded with 4M keys (cut from 8M by the time limit),
+     then a split storm of 262,144 fresh inserts, one read of a loaded key
+     per insert, an update every third and 128 YCSB-A ops (zipfian 0.99)
+     per 256 inserts, through DashFrontend (max_batch 256) and through
+     StopTheWorldFrontend on a clone of the loaded state: every read pre-
+     or post-update, the same write statuses and record multisets, every
+     insert found, no hint miss, no snapshot plane on live storage,
+     ``fused_probe`` exact on the pinned snapshot in the middle of a staged
+     split; read sojourn p50/p99 of both frontends, publishes and their
+     mean bytes against the state, the retried share, the busy share of
+     50 traced ticks. Launch counters as on the main path;
   8. the LH path: a DashLH in the paper's geometry (``max_segments=32768,
      num_stash=4``, ~445 MB of planes) loaded with unique uniform keys in
      batches sized to its stride growth, then the main path's reads,
@@ -51,13 +67,14 @@ Phases, each printed on its own line and each able to fail the run:
      active, and both read kernels are held to their plain versions on
      the filled LH table, on lanes and ticks that reach that segment;
      ``fingerprint_probe`` timed at 1M LH lanes;
-  9. shrink: a DashEH in the main path's pool geometry loaded with 2M keys,
+  9. shrink: a DashEH in the main path's pool geometry loaded with 1M keys,
      1.6M deleted, ``shrink()``, the survivors and the deleted keys
-     checked, then 1M fresh keys inserted: the watermark may grow only
+     checked, then 0.5M fresh keys inserted: the watermark may grow only
      once the freed ids are used up.
 
-Each kernel's ``launches`` in the JSON line is the sum over the two paths
-driven with counters (the EH main path and the LH path). The last three
+Each kernel's ``launches`` in the JSON line is the sum over the three
+paths driven with counters (the EH main path, the frontend and the LH
+path). The last three
 lines are the card line, one JSON object describing every kernel, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 outside a checkout of the repository, it exits nonzero and prints no result.
@@ -78,13 +95,19 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate (data sheet)
 FP32_OPS_PER_S = 67e12           # H100 SXM float32 rate outside the tensor cores
 SECTOR = 32                      # bytes per DRAM access sector
 DEVICE = "cuda"                  # a CPU rehearsal of the phases sets "cpu"
-#: LH path depth, set by the run's time limit. The 32768-segment LH pool
-#: holds ~16M keys: LH grows in waves (a round fills with few splits, then
-#: splits in a burst), and once the 16384 -> 32768 burst ends the next
-#: stash activation finds the LH directory exhausted. That burst alone
-#: needs >= 1024 more insert rounds (16 segments a round), which with the
-#: load's ~3500 rounds to 12M would take the phase past ~400 s.
-LH_KEYS = 12_000_000
+#: Depths set by the run's time limit. The host drives every path, so a
+#: run's time swings with the host: at LH 12M, frontend 6M and shrink 2M
+#: one whole run took 1130 s of its 1200. The LH path is cut first: its
+#: load is one insert round per ~3400 keys (LH splits only at Next). The
+#: 32768-segment LH pool holds ~16M keys in any case: once the 16384 ->
+#: 32768 burst ends, the next stash activation finds the LH directory
+#: exhausted.
+LH_KEYS = 4_000_000
+#: the frontend phase: keys loaded, then fresh keys of its split storm
+FE_KEYS = 4_000_000
+FE_FRESH = 1 << 18
+#: the shrink phase: keys loaded (80 % then deleted), then fresh keys
+SHRINK_KEYS = 1_000_000
 
 KERNELS = {   # name: (source, TPU kernel it replaces)
     "bulk_hash": ("src/repro_torch/kernels/csrc/hashmix.cu",
@@ -319,6 +342,88 @@ def _shrink_stream(cfg, device, seed: int):
     return t, out
 
 
+def _frontend_ops(seed: int, n_load: int = 400, n_fresh: int = 200):
+    """The shape of the CPU tests' mixed stream: a load, then fresh inserts
+    each followed by a read of a loaded key, an update every third. Ops as
+    (kind, key, value) tuples."""
+    from repro_torch.workloads import ycsb
+    from repro_torch.serving import frontend as fe
+    rng = np.random.default_rng(seed)
+    keys = ycsb.load_keys(rng, n_load + n_fresh)
+    loaded, fresh = keys[:n_load], keys[n_load:]
+    load = [(fe.INSERT, int(k), ycsb.expected_value(int(k))) for k in loaded]
+    storm = []
+    ridx = rng.integers(0, n_load, n_fresh)
+    for i, k in enumerate(fresh):
+        group = [(fe.INSERT, int(k), ycsb.expected_value(int(k))),
+                 (fe.READ, int(loaded[ridx[i]]), 0)]
+        if i % 3 == 0:
+            kk = int(loaded[ridx[i]])
+            group.append((fe.UPDATE, kk, ycsb.updated_value(kk)))
+        storm.append(group)
+    return load, storm
+
+
+def _frontend_stream(device, seed: int, fused_reads=None):
+    """The mixed stream through a DashFrontend over DashEH and over DashLH
+    at the CPU tests' config, one tick after every second group of the
+    storm (so reads overlap staged splits). Returns the LH table and every answer:
+    per-op outcomes, stats() without the seconds, the SMO counts."""
+    from repro_torch.core import DashConfig, DashEH, DashLH
+    from repro_torch.core.epoch import shared_planes
+    from repro_torch.serving import frontend as fe
+    cfg = DashConfig(max_segments=32, dir_depth_max=7, num_buckets=16, num_slots=8)
+    load, storm = _frontend_ops(seed)
+    out = []
+    for cls in (DashEH, DashLH):
+        f = fe.DashFrontend(cls(cfg, device=device), max_batch=128,
+                            queue_depth=1 << 14, fused_reads=fused_reads)
+        ops = [fe.Op(*o) for o in load]
+        for op in ops:
+            f.submit(op)
+        f.drain()
+        for i, group in enumerate(storm):
+            for o in group:
+                ops.append(fe.Op(*o))
+                f.submit(ops[-1])
+            if i % 2:
+                f.step()
+            check(not shared_planes(f.registry.current.state, f.table.state),
+                  "a snapshot plane shares storage with a live plane")
+        f.drain()
+        stats = f.stats()
+        stats.pop("publish_seconds")
+        out.append(np.array([(op.status, op.found, op.result) for op in ops], np.int64))
+        out.append(np.array([f.snapshot_reads, f.retried_reads, f.smo_stages,
+                             f.smo_dispatches] + [stats[k] for k in sorted(stats)
+                                                  if k != "health"]))
+    return f.table, out
+
+
+def _pointer_stream(device, seed: int):
+    """Pointer mode (keys are 2-word rows in a key heap): inserts through
+    splits, searches of hits and misses, deletes, updates, re-inserts."""
+    from repro_torch.core import DashConfig, DashEH
+    cfg = DashConfig(max_segments=64, dir_depth_max=8, num_buckets=16, num_slots=8,
+                     pointer_mode=True, key_heap_size=4096, key_heap_words=2)
+    rng = np.random.default_rng(seed)
+    rows = np.unique(rng.integers(0, 2**32, (2600, 2), dtype=np.uint64).astype(np.uint32),
+                     axis=0)
+    rows = rows[rng.permutation(rows.shape[0])][:2500]
+    keys, absent = rows[:2000], rows[2000:]
+    vals = np.arange(2000, dtype=np.uint32) + 1
+    t = DashEH(cfg, device=device)
+    out = [t.insert(None, vals[a:b], keys[a:b])
+           for a, b in ((0, 400), (400, 1200), (1200, 2000))]
+    out += list(t.search(None, np.concatenate([keys, absent])))
+    out.append(t.delete(None, keys[::4]))
+    out.append(t.update(None, vals[1::4] + 7000, keys[1::4]))
+    out.append(t.insert(None, vals[:400], keys[:400]))
+    out += list(t.search(None, keys))
+    out.append(np.array([t.n_segments, int(t.state.heap_top)]))
+    return t, out
+
+
 def phase_cuda_vs_cpu():
     from repro_torch import interop
     from repro_torch.core import DashConfig
@@ -330,6 +435,9 @@ def phase_cuda_vs_cpu():
         "eh crash": lambda dev: _crash_stream(eh, dev, 7, "DashEH"),
         "lh crash": lambda dev: _crash_stream(lh, dev, 8, "DashLH"),
         "shrink": lambda dev: _shrink_stream(eh, dev, 9),
+        "frontend": lambda dev: _frontend_stream(dev, 10),
+        "frontend routed reads": lambda dev: _frontend_stream(dev, 10, fused_reads=False),
+        "pointer": lambda dev: _pointer_stream(dev, 11),
     }
     t0 = time.perf_counter()
     facts = {}
@@ -359,13 +467,27 @@ def phase_cuda_vs_cpu():
     check(merges > 0 and refill[0] == before and len(refill) - 1 < freed,
           f"shrink stream: {merges} merges, watermark {before} -> {refill[0]}, "
           f"free {freed} -> {len(refill) - 1}")
+    fe_counts = []
+    for name in ("frontend", "frontend routed reads"):
+        _, out = facts[name]
+        for table, (res, counts) in (("eh", out[:2]), ("lh", out[2:])):
+            check(counts[3] > 0, f"{name} {table}: no SMO ran staged")
+            fe_counts.append(f"{table} {counts[2]} stages / {counts[1]} retried")
+    check(np.array_equal(facts["frontend"][1][0], facts["frontend routed reads"][1][0]),
+          "the fused-read and routed-read frontends answered differently")
+    t_ptr, out = facts["pointer"]
+    check(out[3][:2000].all() and not out[3][2000:].any() and out[-1][0] > 2,
+          f"pointer stream: {int(out[3].sum())} of 2000 keys found, "
+          f"{out[-1][0]} segments")
     log(f"phase cuda_vs_cpu: ok byte-identical states after 12000 inserts, "
         f"{t_eh.n_segments} segments, deletes/updates/searches; LH stream "
         f"{t_lh.n_segments} segments; crash streams (EH with an interrupted split, "
         f"LH) recovered {facts['eh crash'][0].recovered_segments} / "
         f"{facts['lh crash'][0].recovered_segments} segments lazily; shrink stream "
-        f"{merges} merges, {freed - (len(refill) - 1)} freed ids recycled "
-        f"({time.perf_counter() - t0:.1f}s)")
+        f"{merges} merges, {freed - (len(refill) - 1)} freed ids recycled; "
+        f"frontend streams (fused / routed reads; SMO stages / retried reads) "
+        f"{', '.join(fe_counts)}; pointer stream {out[-1][0]} segments, heap_top "
+        f"{out[-1][1]} ({time.perf_counter() - t0:.1f}s)")
 
 
 def phase_edges():
@@ -851,7 +973,271 @@ def phase_recovery(t, keys, misses, truth, B: int = 1 << 20):
                 eager_s=eager_s)
 
 
-def phase_shrink(cfg, n_keys: int = 2_000_000, n_fresh: int = 1_000_000):
+def _expected_values(keys):
+    """``ycsb.expected_value`` of every key, vectorized."""
+    v = ((keys ^ (keys >> np.uint64(17))) & np.uint64(0x7FFFFFFF)).astype(np.uint32)
+    v[v == 0] = 1
+    return v
+
+
+def _frontend_blocks(loaded, fresh, rng, block: int = 256, ycsb_per_block: int = 128):
+    """The storm's op stream in blocks of ``block`` fresh keys, with the
+    CPU tests' mixed-stream ratios: one read of a loaded key per fresh
+    insert, an update of that key every third, plus ``ycsb_per_block``
+    YCSB-A ops (50 % read, 50 % update, zipfian 0.99 over the loaded keys).
+    A block is its inserts, then its reads, then its updates, so both
+    frontends' write lanes (and the stop-the-world FIFO) form full batches.
+    Yields lists of (kind, key, value)."""
+    from repro_torch.serving import frontend as fe
+    from repro_torch.workloads import ycsb
+    n_blocks = fresh.size // block
+    a_ops = ycsb.generate(ycsb.YCSBConfig(mix="A", n_ops=n_blocks * ycsb_per_block,
+                                          seed=17), loaded)
+    ridx = rng.integers(0, loaded.size, fresh.size)
+    for j in range(n_blocks):
+        ins, rds, upd = [], [], []
+        for i in range(j * block, (j + 1) * block):
+            k, kk = int(fresh[i]), int(loaded[ridx[i]])
+            ins.append((fe.INSERT, k, ycsb.expected_value(k)))
+            rds.append((fe.READ, kk, 0))
+            if i % 3 == 0:
+                upd.append((fe.UPDATE, kk, ycsb.updated_value(kk)))
+        for op in a_ops[j * ycsb_per_block:(j + 1) * ycsb_per_block]:
+            (upd if op.kind == fe.UPDATE else rds).append((op.kind, op.key, op.value))
+        yield ins + rds + upd
+
+
+class _Feeder:
+    """Feeds a frontend block by block: a new block is submitted whenever
+    the read lane is empty and fewer than ``backlog`` writes are queued, so
+    the reads of one block are served while the writes and staged SMOs of
+    the blocks before it are in flight."""
+
+    def __init__(self, f, blocks, on_tick=None, backlog: int = 1024):
+        from repro_torch.serving import frontend as fe
+        self.f, self.blocks, self.on_tick, self.fe = f, iter(blocks), on_tick, fe
+        self.backlog = backlog
+        self.ops, self.ticks, self.submitted, self.exhausted = [], 0, 0, False
+
+    def tick(self) -> bool:
+        f = self.f
+        if not len(f.reads) and len(f.writes) < self.backlog and not self.exhausted:
+            block = next(self.blocks, None)
+            if block is None:
+                self.exhausted = True
+            else:
+                for o in block:
+                    self.ops.append(self.fe.Op(*o))
+                    check(f.submit(self.ops[-1]), "the admission queue rejected an op")
+                self.submitted += 1
+        if self.exhausted and not f.busy:
+            return False
+        f.step()
+        self.ticks += 1
+        if self.on_tick is not None:
+            self.on_tick(f, self.ticks)
+        return True
+
+    def run(self, ticks=None, blocks=None):
+        """Tick until ``ticks`` more ticks ran, ``blocks`` blocks were
+        submitted, or everything is done."""
+        t0 = self.ticks
+        while ((ticks is None or self.ticks - t0 < ticks)
+               and (blocks is None or self.submitted < blocks) and self.tick()):
+            pass
+        return self.ticks - t0
+
+
+def phase_frontend(cfg, n_keys: int, n_fresh: int, report, card: str):
+    """The online-resize serving frontend at full width: a DashEH loaded to
+    ``n_keys`` through ``table.insert``, then a split storm of ``n_fresh``
+    fresh inserts with reads, updates and YCSB-A ops through DashFrontend
+    (max_batch 256), and the same stream through StopTheWorldFrontend on a
+    clone of the loaded state. The launch counters are set to 0 just before
+    the DashFrontend run and read just after."""
+    from repro_torch.core import DashEH, engine, layout
+    from repro_torch.core.epoch import shared_planes
+    from repro_torch.kernels import fused, hashmix, probe
+    from repro_torch.serving import frontend as fe
+    t_phase = time.perf_counter()
+    keys = distinct_keys(2 << 40, n_keys + n_fresh)
+    loaded, fresh = keys[:n_keys], keys[n_keys:]
+    rng = np.random.default_rng(21)
+    rng.shuffle(loaded)                              # rank r -> a random key
+    vals = _expected_values(loaded)
+    t = DashEH(cfg, device=DEVICE)
+    t0 = time.perf_counter()
+    done = 0
+    while done < n_keys:
+        n = min(eh_batch(t), n_keys - done)
+        check((t.insert(loaded[done:done + n], vals[done:done + n]) == 0).all(),
+              "frontend load failed")
+        done += n
+    sync()
+    load_s = time.perf_counter() - t0
+    clone = layout.DashState(*(x.clone() for x in t.state))
+    whole = layout.state_nbytes(t.state)
+    log(f"  frontend: loaded {n_keys} keys in {load_s:.1f}s, {t.n_segments} segments, "
+        f"state {whole / 2**20:.0f} MB")
+
+    # ---- DashFrontend: snapshot reads, staged splits, COW publishes ----
+    for mod in (hashmix, probe, fused):
+        mod.LAUNCHES = 0
+    memo0 = fused._checked_planes.cache_info()
+    f = fe.DashFrontend(t, max_batch=256, queue_depth=1 << 16)
+    state = dict(mid_split=None, shared=0, trace=None)
+
+    def on_tick(f, ticks):
+        if shared_planes(f.registry.current.state, f.table.state):
+            state["shared"] += 1
+        task = f._smo_task
+        if state["mid_split"] is None and task is not None and task.stage == "commit" \
+                and f.smo_dispatches > 0:
+            state["mid_split"] = _check_snapshot_probe(f, loaded)
+
+    blocks = list(_frontend_blocks(loaded, fresh, np.random.default_rng(22)))
+    drv = _Feeder(f, blocks, on_tick)
+    t0 = time.perf_counter()
+    drv.run(blocks=len(blocks) // 2)
+    if DEVICE == "cuda":
+        # 50 ticks traced: the card's busy share while the storm is served
+        wall, busy, top, ticks_t = busy_share(lambda: drv.run(ticks=50))
+    else:
+        ticks_t = drv.run(ticks=50)
+    drv.run()
+    sync()
+    fe_s = time.perf_counter() - t0
+    ops, ticks = drv.ops, drv.ticks
+    launches = {"bulk_hash": hashmix.LAUNCHES, "fingerprint_probe": probe.LAUNCHES,
+                "fused_probe": fused.LAUNCHES}
+    memo1 = fused._checked_planes.cache_info()
+    st = f.stats()
+
+    # ---- StopTheWorldFrontend on a clone of the loaded state ----
+    t_stw = DashEH(cfg, device=DEVICE, state=clone)
+    g = fe.StopTheWorldFrontend(t_stw, max_batch=256, queue_depth=1 << 16)
+    t0 = time.perf_counter()
+    drv_s = _Feeder(g, blocks)
+    drv_s.run()
+    ops_s, ticks_s = drv_s.ops, drv_s.ticks
+    sync()
+    stw_s = time.perf_counter() - t0
+
+    kinds = np.array([op.kind for op in ops])
+    rd = kinds == fe.READ
+    rl = np.asarray(f.read_latencies) * 1e3
+    sl = np.asarray(g.read_latencies) * 1e3
+    n_reads = f.snapshot_reads + f.retried_reads
+    hits = memo1.hits - memo0.hits
+    misses = memo1.misses - memo0.misses
+    mean_pub = st["publish_bytes"] / st["published"]
+    out = dict(fe_p50=np.percentile(rl, 50), fe_p99=np.percentile(rl, 99),
+               stw_p50=np.percentile(sl, 50), stw_p99=np.percentile(sl, 99),
+               ticks=ticks, publishes=st["published"], mean_publish_bytes=mean_pub,
+               state_bytes=whole, publish_seconds=st["publish_seconds"],
+               retried_share=f.retried_reads / n_reads, seconds=0.0)
+    log(f"  frontend [{card}]: {len(ops)} ops ({int(rd.sum())} reads) in {ticks} ticks, "
+        f"{fe_s:.1f}s; {f.smo_dispatches} staged SMOs in {f.smo_stages} stages; "
+        f"{st['published']} publishes, mean {mean_pub:.0f} B = {mean_pub / whole:.6f} of "
+        f"the {whole} B state, publish_seconds {st['publish_seconds']:.2f}; "
+        f"{f.retried_reads} of {n_reads} reads retried ({out['retried_share']:.5f}); "
+        f"fused plane-set memo {hits} hits / {misses} misses "
+        f"({hits / max(hits + misses, 1):.3f})")
+    log(f"  frontend [{card}]: read sojourn p50 {out['fe_p50']:.3f} ms p99 "
+        f"{out['fe_p99']:.3f} ms (DashFrontend) vs p50 {out['stw_p50']:.3f} ms p99 "
+        f"{out['stw_p99']:.3f} ms (StopTheWorldFrontend, {ticks_s} ticks, {stw_s:.1f}s)")
+    if DEVICE == "cuda":
+        log(f"  trace frontend [{card}] {ticks_t} ticks: wall {wall * 1e3:.1f} ms, card busy "
+            f"{busy * 1e3:.1f} ms (busy share {busy / wall:.3f}); top: "
+            + "; ".join(f"{k} {v:.2f} ms" for k, v in top))
+    # ---- checks ----
+    check(np.array_equal(kinds, [op.kind for op in ops_s]), "the two streams differ")
+    r_key = np.array([op.key for op, r in zip(ops, rd) if r], np.uint64)
+    for name, stream in (("DashFrontend", ops), ("StopTheWorldFrontend", ops_s)):
+        found = np.array([op.found for op, r in zip(stream, rd) if r])
+        res = np.array([op.result for op, r in zip(stream, rd) if r], np.int64)
+        pre = _expected_values(r_key).astype(np.int64)
+        post = (pre + 0x9E37) & 0x7FFFFFFF
+        post[post == 0] = 1
+        check(found.all(), f"{name}: a read of a loaded key found nothing")
+        check(((res == pre) | (res == post)).all(),
+              f"{name}: a read returned a value from neither side of its update")
+    w_fe = np.array([op.status for op, r in zip(ops, rd) if not r])
+    w_stw = np.array([op.status for op, r in zip(ops_s, rd) if not r])
+    check(np.array_equal(w_fe, w_stw), "the frontends' write statuses differ")
+    check((w_fe == layout.INSERTED).all(), f"write statuses {np.bincount(w_fe)}")
+    check(all(torch.equal(a, b) for a, b in zip(_records(t), _records(t_stw))),
+          "the frontends left different record multisets")
+    fresh_found, _ = t.search(fresh[:len(blocks) * 256])
+    check(fresh_found.all(), "an acknowledged insert is missing after the drain")
+    recount = int(engine.recount_items(t.state))
+    check(t.n_items == recount == n_keys + len(blocks) * 256,
+          f"n_items {t.n_items} recount {recount}")
+    check(st["hint_misses"] == 0, f"{st['hint_misses']} dirty-hint misses")
+    check(f.smo_dispatches > 0 and f.retried_reads > 0,
+          f"{f.smo_dispatches} SMO dispatches, {f.retried_reads} retried reads")
+    check(state["shared"] == 0, f"{state['shared']} ticks with a snapshot plane on live storage")
+    check(state["mid_split"] is not None, "no tick caught a staged split")
+    for kernel in ("bulk_hash", "fused_probe"):
+        check(launches[kernel] > 0 or DEVICE != "cuda",
+              f"{kernel} was not launched on the frontend path")
+    for kernel, count in launches.items():
+        r = report.setdefault(kernel, {})
+        r.setdefault("paths", {})["frontend"] = count
+        r["launches"] = sum(r["paths"].values())
+
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase frontend: ok {n_keys} keys + {len(blocks) * 256} fresh; every read "
+        f"pre- or post-update, the frontends agree on every write and on the records, "
+        f"every acknowledged insert found, n_items == recount_items, hint_misses 0, "
+        f"no snapshot plane on live storage; fused_probe exact on the pinned snapshot "
+        f"mid-split ({state['mid_split']} lanes found); launches {launches} "
+        f"({out['seconds']:.1f}s) [{card}]")
+    return out
+
+
+def _check_snapshot_probe(f, loaded, n: int = 256):
+    """``fused_probe`` on the pinned snapshot's planes against its plain
+    version, while a staged split has rewritten the live planes. The
+    launches made here are taken back out of the counters (a check, not
+    the path). Returns the lanes found."""
+    from repro_torch.core import engine, hashing
+    from repro_torch.kernels import fused, hashmix
+    saved = (hashmix.LAUNCHES, fused.LAUNCHES)
+    cfg = f.cfg
+    with f.registry.acquire() as snap:
+        st = snap.state
+        rng = np.random.default_rng(5)
+        q_hi, q_lo = hashing.split_keys(loaded[rng.integers(0, loaded.size, n)], DEVICE)
+        h1, _, fpq = hashmix.bulk_hash(q_hi, q_lo)
+        seg, b = engine.locate(cfg, f.mode, st, h1)
+        args = (st.fp, st.meta, st.key_hi, st.key_lo, st.val, st.stash_active,
+                seg.int(), fpq, b.int(), ((b + 1) & (cfg.num_buckets - 1)).int(), q_hi, q_lo)
+        kw = dict(nb=cfg.num_buckets, ns=cfg.num_stash, use_fp=cfg.use_fingerprints)
+        got = fused.fused_probe(*args, **kw)
+        want = fused.fused_probe_plain(*args, **kw)
+        err = max_abs_err(got, want)
+        n_found = int(got[0].sum())
+    hashmix.LAUNCHES, fused.LAUNCHES = saved
+    check(err == 0, f"fused_probe on the pinned snapshot differs from its plain version "
+          f"(max err {err})")
+    check(n_found == n, f"{n_found} of {n} loaded keys found on the snapshot")
+    return n_found
+
+
+def _records(t):
+    """The table's records as (keys, values) int64 tensors on the card,
+    sorted by key: equal for two tables iff their record multisets are."""
+    from repro_torch.core import layout
+    cfg, st = t.cfg, t.state
+    bits = ((layout.meta_alloc(st.meta)[..., None]
+             >> torch.arange(cfg.num_slots, device=st.meta.device)) & 1) == 1
+    key = (layout.u32(st.key_hi[bits]) << 32) | layout.u32(st.key_lo[bits])
+    key, order = torch.sort(key)
+    return key, layout.u32(st.val[bits])[order]
+
+
+def phase_shrink(cfg, n_keys: int = SHRINK_KEYS, n_fresh: int = SHRINK_KEYS // 2):
     """Delete 80 % of a loaded EH table, shrink it, check every answer,
     then refill: the splits must take the freed ids before the watermark
     grows."""
@@ -996,14 +1382,17 @@ def main(argv=None) -> int:
                     help="keys loaded on the main path (default 20M, never below 4M)")
     ap.add_argument("--lh-keys", type=int, default=LH_KEYS,
                     help=f"keys loaded on the LH path (default {LH_KEYS}, never below 4M)")
+    ap.add_argument("--fe-keys", type=int, default=FE_KEYS,
+                    help=f"keys loaded before the frontend's split storm (default "
+                         f"{FE_KEYS}, never below 4M)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.core import DashConfig   # fails outside a checkout of the repo
-    if min(args.keys, args.lh_keys) < 4_000_000:
-        print("chip_smoke: --keys or --lh-keys below 4M is not the main path",
+    if min(args.keys, args.lh_keys, args.fe_keys) < 4_000_000:
+        print("chip_smoke: --keys, --lh-keys or --fe-keys below 4M is not the main path",
               file=sys.stderr)
         return 2
     card = gpu_line()
@@ -1012,6 +1401,8 @@ def main(argv=None) -> int:
         log(f"main path cut: {args.keys} keys of 20000000")
     if args.lh_keys != 20_000_000:
         log(f"lh path cut: {args.lh_keys} keys of 20000000")
+    if args.fe_keys != 8_000_000:
+        log(f"frontend cut: {args.fe_keys} keys of 8000000")
     report = {}
     t0 = time.perf_counter()
     try:
@@ -1024,6 +1415,8 @@ def main(argv=None) -> int:
         phase_probe_kernels(t, keys, misses, report)
         phase_recovery(t, keys, misses, truth)
         del t, truth
+        fe = phase_frontend(DashConfig(max_segments=32768, dir_depth_max=17),
+                            args.fe_keys, FE_FRESH, report, card)
         t, keys, misses, lh, _ = phase_main_path(
             DashConfig(max_segments=32768, num_stash=4), args.lh_keys, 1000, report,
             "DashLH", "lh", lh_batch, LH_RETRIES)
@@ -1043,7 +1436,8 @@ def main(argv=None) -> int:
             f"{r['shape']} ({r['call_ms'] * 1e3:.2f} us per wrapper call; plain "
             f"{r['plain_ms'] * 1e3:.2f} us; bound {r['bound'][0] * 1e3:.3f} us by "
             f"{r['bound'][1]}{floor}), {r['paths']['main']} launches on the main path "
-            f"+ {r['paths']['lh']} on the LH path [{card}]")
+            f"+ {r['paths']['frontend']} on the frontend path + {r['paths']['lh']} on the "
+            f"LH path [{card}]")
     log(f"end to end [{card}]: insert {summary['insert_mops']:.3f} Mops/s, search "
         f"{summary['search_mops']:.3f} Mops/s, tick p50 {summary['tick_p50_ms']:.3f} ms "
         f"p99 {summary['tick_p99_ms']:.3f} ms ({summary['keys']} keys, "
@@ -1051,7 +1445,13 @@ def main(argv=None) -> int:
     log(f"end to end LH [{card}]: insert {lh['insert_mops']:.3f} Mops/s, search "
         f"{lh['search_mops']:.3f} Mops/s, tick p50 {lh['tick_p50_ms']:.3f} ms "
         f"p99 {lh['tick_p99_ms']:.3f} ms ({lh['keys']} keys, {lh['segments']} segments, "
-        f"load factor {lh['load_factor']:.3f}, {lh['state_mb']:.0f} MB state); "
+        f"load factor {lh['load_factor']:.3f}, {lh['state_mb']:.0f} MB state)")
+    log(f"end to end frontend [{card}]: read sojourn p50 {fe['fe_p50']:.3f} ms p99 "
+        f"{fe['fe_p99']:.3f} ms, stop-the-world p50 {fe['stw_p50']:.3f} ms p99 "
+        f"{fe['stw_p99']:.3f} ms; {fe['ticks']} ticks, {fe['publishes']} publishes of "
+        f"{fe['mean_publish_bytes'] / fe['state_bytes']:.6f} of the state on average, "
+        f"publish_seconds {fe['publish_seconds']:.2f}, retried share "
+        f"{fe['retried_share']:.5f}; phase {fe['seconds']:.0f}s; "
         f"total {time.perf_counter() - t0:.0f}s")
     log(card)
     log(kernel_line(report))

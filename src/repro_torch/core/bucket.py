@@ -56,16 +56,29 @@ def slot_fp_matches(cfg: DashConfig, state: DashState, seg, b, fpv):
     return allocated & (state.fp[seg, b, :cfg.num_slots] == fpv[:, None])
 
 
-def keys_equal(cfg: DashConfig, state: DashState, seg, b, q_hi, q_lo):
-    """(L, SLOTS) bool — inline (hi, lo) key comparison for every slot."""
-    return ((state.key_hi[seg, b] == q_hi[:, None])
-            & (state.key_lo[seg, b] == q_lo[:, None]))
+def heap_rows(cfg: DashConfig, state: DashState, handles):
+    """Pointer mode: the key-heap rows (..., W) the handles point at."""
+    return state.key_heap[u32(handles) % max(cfg.key_heap_size, 1)]
 
 
-def bucket_probe(cfg: DashConfig, state: DashState, seg, b, fpv, q_hi, q_lo):
+def keys_equal(cfg: DashConfig, state: DashState, seg, b, q_hi, q_lo,
+               q_words=None):
+    """(L, SLOTS) bool — full key comparison for every slot. Inline mode
+    compares the (hi, lo) pair; pointer mode treats ``key_lo`` as a
+    key-heap handle and compares the heap row with the lane's ``q_words``
+    (L, W) — the 'dereference the pointer' path of paper Sec. 4.5."""
+    s_hi = state.key_hi[seg, b]
+    if not cfg.pointer_mode:
+        return (s_hi == q_hi[:, None]) & (state.key_lo[seg, b] == q_lo[:, None])
+    rows = heap_rows(cfg, state, state.key_lo[seg, b])       # (L, SLOTS, W)
+    return (s_hi == q_hi[:, None]) & (rows == q_words[:, None, :]).all(-1)
+
+
+def bucket_probe(cfg: DashConfig, state: DashState, seg, b, fpv, q_hi, q_lo,
+                 q_words=None):
     """Search one bucket per lane. Returns (found, slot, value)."""
     eq = slot_fp_matches(cfg, state, seg, b, fpv) & keys_equal(
-        cfg, state, seg, b, q_hi, q_lo)
+        cfg, state, seg, b, q_hi, q_lo, q_words)
     found, slot = first_true(eq)
     return found, slot, state.val[seg, b, slot]
 

@@ -70,11 +70,16 @@ def reinsert(cfg: DashConfig, state: DashState, seg, b, h2, hi, lo, val, valid,
         (0, 0, 0, 0, 0, False))
     lanes = dict(hi=l_hi, lo=l_lo, val=l_val, h2=l_h2, b=l_b, valid=l_valid,
                  seg=segs[:, None].expand(G, cap))
+    # pointer mode: records move with their heap handles; a uniqueness probe
+    # compares against all-zero key words, as the reference's rehash does
+    zero_words = torch.zeros((G, cfg.key_heap_words), dtype=torch.int32,
+                             device=hi.device)
     (statuses,) = engine._segment_parallel(
         state, lanes,
         lambda st, ln: engine._insert_core(
             cfg, st, ln["seg"], ln["b"], ln["h2"], ln["hi"], ln["lo"],
-            ln["val"], ln["valid"], check_unique=check_unique)[:1],
+            ln["val"], ln["valid"], check_unique=check_unique,
+            q_words=zero_words, heap_append=False)[:1],
         (DROPPED,))
     return not bool((statuses == NEED_SPLIT).any())
 

@@ -32,7 +32,7 @@ import torch
 from . import bucket as bk
 from . import hashing, layout
 from .layout import (DROPPED, EXISTS, INSERTED, NEED_SPLIT, NOT_FOUND,
-                     DashConfig, DashState)
+                     DashConfig, DashState, word)
 
 
 def _bulk_hash(keys_hi, keys_lo):
@@ -67,9 +67,11 @@ def _wrap(cfg: DashConfig, b):
 # segment-scope probe (search + uniqueness check)
 # ---------------------------------------------------------------------------
 
-def probe_in_segment(cfg: DashConfig, state: DashState, seg, b, h2, q_hi, q_lo):
+def probe_in_segment(cfg: DashConfig, state: DashState, seg, b, h2, q_hi, q_lo,
+                     q_words=None):
     """Full lookup inside each lane's segment: window buckets, then stash
-    via overflow metadata (Alg. 3). Returns (found, value)."""
+    via overflow metadata (Alg. 3). Returns (found, value). ``q_words``
+    (L, W) are the lanes' key words in pointer mode."""
     fpv = hashing.fingerprint(h2)
     NB, NS = cfg.num_buckets, cfg.num_stash
     found = _zeros(seg, torch.bool)
@@ -77,7 +79,7 @@ def probe_in_segment(cfg: DashConfig, state: DashState, seg, b, h2, q_hi, q_lo):
 
     def visit(bx, gate=None):
         nonlocal found, value
-        f, _, v = bk.bucket_probe(cfg, state, seg, bx, fpv, q_hi, q_lo)
+        f, _, v = bk.bucket_probe(cfg, state, seg, bx, fpv, q_hi, q_lo, q_words)
         if gate is not None:
             f = f & gate
         value = torch.where(f & ~found, v, value)
@@ -120,13 +122,19 @@ def probe_in_segment(cfg: DashConfig, state: DashState, seg, b, h2, q_hi, q_lo):
 # ---------------------------------------------------------------------------
 
 def _insert_core(cfg: DashConfig, state: DashState, seg, b, h2, q_hi, q_lo, v,
-                 valid=None, check_unique: bool = True, exists=None):
+                 valid=None, check_unique: bool = True, exists=None,
+                 q_words=None, heap_append: bool = True):
     """Insert one key per lane into a known segment (the public insert and
     the split rehash both come here, bypassing the directory like the
     paper). Lanes must be in distinct segments. ``exists`` overrides the
     uniqueness probe (the fused path passes its dense probe). Updates the
     planes and ``n_items`` in place; returns (status int32, stash-activated
-    bool) per lane; a lane with ``valid`` False is DROPPED untouched."""
+    bool) per lane; a lane with ``valid`` False is DROPPED untouched.
+
+    Pointer mode: ``q_words`` (L, W) are the keys' words; with
+    ``heap_append`` every placed key appends its words to the key heap and
+    its record stores the heap handle in ``key_lo`` (SMO rehashes move
+    records with their handles and pass ``heap_append=False``)."""
     fpv = hashing.fingerprint(h2)
     NB, SL, NS = cfg.num_buckets, cfg.num_slots, cfg.num_stash
     pb = _wrap(cfg, b + 1)
@@ -134,7 +142,7 @@ def _insert_core(cfg: DashConfig, state: DashState, seg, b, h2, q_hi, q_lo, v,
     if valid is None:
         valid = ~false
     if exists is None:
-        exists = (probe_in_segment(cfg, state, seg, b, h2, q_hi, q_lo)[0]
+        exists = (probe_in_segment(cfg, state, seg, b, h2, q_hi, q_lo, q_words)[0]
                   if check_unique else false)
 
     # ---- candidate computation (cheap packed-word reads) ----
@@ -186,6 +194,9 @@ def _insert_core(cfg: DashConfig, state: DashState, seg, b, h2, q_hi, q_lo, v,
     # ---- each branch as masked writes, in the branch's own store order;
     # one read of the codes skips the branches no lane takes ----
     taken = torch.bincount(torch.where(valid, code, 0), minlength=6).tolist()
+    if cfg.pointer_mode and heap_append and any(taken[1:5]):
+        q_lo = _heap_append(cfg, state, valid & (code >= 1) & (code <= 4),
+                            q_words, q_lo)
     if taken[1]:                             # plain insert
         m = valid & (code == 1)
         _, slot = bk.first_free_slot(cfg, state, seg, ins_b)
@@ -227,12 +238,27 @@ def _insert_core(cfg: DashConfig, state: DashState, seg, b, h2, q_hi, q_lo, v,
     return status, stash_activates & inserted & (code == 4)
 
 
+def _heap_append(cfg: DashConfig, state: DashState, placed, q_words, q_lo):
+    """Pointer mode: bump-allocate one key-heap row per placed lane (in lane
+    order) and store its words there. Returns the ``key_lo`` each lane's
+    record stores: its heap handle where placed, else ``q_lo``. A handle
+    past the heap's end writes the last row, as the reference's clamped
+    slice update does."""
+    order = torch.cumsum(placed.long(), 0) - placed.long()
+    handle = state.heap_top.long() + order
+    rows = handle.clamp(max=state.key_heap.shape[0] - 1)
+    sel = placed.nonzero()[:, 0]
+    state.key_heap[rows[sel]] = q_words[sel].to(torch.int32)
+    state.heap_top.add_(placed.sum().to(torch.int32))
+    return torch.where(placed, word(handle), q_lo)
+
+
 # ---------------------------------------------------------------------------
 # delete (Sec. 4.6) and update
 # ---------------------------------------------------------------------------
 
 def delete_in_segment(cfg: DashConfig, state: DashState, seg, b, h2,
-                      q_hi, q_lo, valid=None):
+                      q_hi, q_lo, valid=None, q_words=None):
     """Delete one key per lane (distinct segments), in place. Returns
     status INSERTED (deleted) / NOT_FOUND, DROPPED for invalid lanes."""
     fpv = hashing.fingerprint(h2)
@@ -244,7 +270,7 @@ def delete_in_segment(cfg: DashConfig, state: DashState, seg, b, h2,
     found_w, w_b, w_slot = _zeros(seg, torch.bool), _zeros(seg), _zeros(seg)
     for w in range(cfg.probe_window):
         bw = _wrap(cfg, b + w)
-        f, slot, _ = bk.bucket_probe(cfg, state, seg, bw, fpv, q_hi, q_lo)
+        f, slot, _ = bk.bucket_probe(cfg, state, seg, bw, fpv, q_hi, q_lo, q_words)
         take = f & ~found_w
         w_b = torch.where(take, bw, w_b)
         w_slot = torch.where(take, slot, w_slot)
@@ -255,7 +281,8 @@ def delete_in_segment(cfg: DashConfig, state: DashState, seg, b, h2,
     if NS > 0:
         active = state.stash_active[seg]
         for s in range(NS):
-            f, slot, _ = bk.bucket_probe(cfg, state, seg, NB + s, fpv, q_hi, q_lo)
+            f, slot, _ = bk.bucket_probe(cfg, state, seg, NB + s, fpv, q_hi, q_lo,
+                                         q_words)
             f = f & (s < active)
             take = f & ~found_s
             s_j = torch.where(take, s, s_j)
@@ -289,7 +316,7 @@ def delete_in_segment(cfg: DashConfig, state: DashState, seg, b, h2,
 
 
 def update_in_segment(cfg: DashConfig, state: DashState, seg, b, h2,
-                      q_hi, q_lo, v, valid=None):
+                      q_hi, q_lo, v, valid=None, q_words=None):
     """Set the payload of an existing key per lane (distinct segments), in
     place. The touched bucket's version word is bumped like every other
     write, so the optimistic snapshot-verify path sees the change."""
@@ -301,7 +328,7 @@ def update_in_segment(cfg: DashConfig, state: DashState, seg, b, h2,
 
     def visit(bx, gate=None):
         nonlocal status
-        f, slot, _ = bk.bucket_probe(cfg, state, seg, bx, fpv, q_hi, q_lo)
+        f, slot, _ = bk.bucket_probe(cfg, state, seg, bx, fpv, q_hi, q_lo, q_words)
         do = f & (status == NOT_FOUND) & valid
         if gate is not None:
             do = do & gate
@@ -334,6 +361,25 @@ def pallas_search_eligible(cfg: DashConfig) -> bool:
             and (cfg.use_balanced or cfg.probe_len <= 2))
 
 
+def _key_words(cfg: DashConfig, keys_hi, words):
+    """The batch's (n, W) key words: all-zero rows if none are given, as in
+    the reference."""
+    if words is not None:
+        return words
+    return torch.zeros((keys_hi.shape[0], cfg.key_heap_words), dtype=torch.int32,
+                       device=keys_hi.device)
+
+
+def _query_parts(cfg: DashConfig, keys_hi, keys_lo, words):
+    """(hi, lo, words, h1, h2) of a batch. Pointer mode folds the full key
+    words into the identity pair."""
+    words = _key_words(cfg, keys_hi, words)
+    if cfg.pointer_mode:
+        keys_hi, keys_lo = hashing.key_identity_from_words(words)
+    h1, h2, _ = _bulk_hash(keys_hi, keys_lo)
+    return keys_hi, keys_lo, words, h1, h2
+
+
 def _default_valid(keys_hi, valid):
     if valid is None:
         return torch.ones(keys_hi.shape, dtype=torch.bool, device=keys_hi.device)
@@ -349,12 +395,14 @@ def _per_key(n: int, step):
 
 
 def _insert_batch_scan(cfg: DashConfig, mode: str, state: DashState,
-                       keys_hi, keys_lo, vals, valid):
-    """Sequential reference engine (the CPU oracle; one Python step per key)."""
-    h1, h2, _ = _bulk_hash(keys_hi, keys_lo)
+                       keys_hi, keys_lo, vals, valid, words):
+    """Sequential reference engine (the CPU oracle; one Python step per key).
+    Also serves pointer mode, whose key heap is a global append log."""
+    keys_hi, keys_lo, words, h1, h2 = _query_parts(cfg, keys_hi, keys_lo, words)
     seg, b = locate(cfg, mode, state, h1)
     res = _per_key(keys_hi.shape[0], lambda i: _insert_core(
-        cfg, state, seg[i], b[i], h2[i], keys_hi[i], keys_lo[i], vals[i], valid[i]))
+        cfg, state, seg[i], b[i], h2[i], keys_hi[i], keys_lo[i], vals[i],
+        valid[i], q_words=words[i]))
     if res is None:
         return state, _zeros(keys_hi, torch.int32), torch.tensor(False)
     return state, res[0], res[1].any()
@@ -399,7 +447,8 @@ def _routed(cfg, mode, state, payload, capacity, body, fills):
 
 def insert_batch(cfg: DashConfig, mode: str, state: DashState,
                  keys_hi, keys_lo, vals, valid=None,
-                 batching: str = "segment", capacity: int | None = None):
+                 batching: str = "segment", capacity: int | None = None,
+                 words=None):
     """Sequentially-consistent batch insert, in place. Returns (state,
     statuses, any_stash_activation).
 
@@ -408,15 +457,17 @@ def insert_batch(cfg: DashConfig, mode: str, state: DashState,
     is the merged-commit path (kernels/fused.py) the planner picks for small
     batches. All give identical planes and statuses when ``capacity`` covers
     the largest per-segment lane count (the default covers any skew).
-    ``valid`` masks out lanes."""
+    ``valid`` masks out lanes. Pointer mode takes the keys' (n, W) ``words``
+    and always runs the scan engine."""
     n = keys_hi.shape[0]
     valid = _default_valid(keys_hi, valid)
+    if batching == "scan" or cfg.pointer_mode:
+        return _insert_batch_scan(cfg, mode, state, keys_hi, keys_lo, vals, valid,
+                                  words)
     if batching == "fused":
         from repro_torch.kernels import fused
         return fused.fused_insert(cfg, mode, state, keys_hi, keys_lo, vals,
                                   valid, capacity)
-    if batching == "scan":
-        return _insert_batch_scan(cfg, mode, state, keys_hi, keys_lo, vals, valid)
     if batching != "segment":
         raise ValueError(f"unknown batching {batching!r}")
     cap = min(capacity or _pow2_at_least(n), _pow2_at_least(n))
@@ -429,14 +480,14 @@ def insert_batch(cfg: DashConfig, mode: str, state: DashState,
 
 
 def _search_batch_vmap(cfg: DashConfig, mode: str, state: DashState,
-                       keys_hi, keys_lo):
-    h1, h2, _ = _bulk_hash(keys_hi, keys_lo)
+                       keys_hi, keys_lo, words=None):
+    keys_hi, keys_lo, words, h1, h2 = _query_parts(cfg, keys_hi, keys_lo, words)
     seg, b = locate(cfg, mode, state, h1)
-    return probe_in_segment(cfg, state, seg, b, h2, keys_hi, keys_lo)
+    return probe_in_segment(cfg, state, seg, b, h2, keys_hi, keys_lo, words)
 
 
 def search_batch(cfg: DashConfig, mode: str, state: DashState,
-                 keys_hi, keys_lo, batching: str = "auto"):
+                 keys_hi, keys_lo, batching: str = "auto", words=None):
     """Lock-free batched lookup — pure reads. Returns (found bool, values
     as int32 words).
 
@@ -444,32 +495,46 @@ def search_batch(cfg: DashConfig, mode: str, state: DashState,
     over direct-addressed lanes (``kernels/ops.probe_direct``); ``"vmap"`` is
     the per-key path, used for configs the kernel does not cover; ``"fused"``
     is the one-kernel latency path (kernels/fused.py) the planner picks for
-    small batches."""
+    small batches. Pointer mode takes the keys' (n, W) ``words``."""
     if batching == "fused":
         from repro_torch.kernels import fused
-        return fused.fused_search(cfg, mode, state, keys_hi, keys_lo)
+        if cfg.pointer_mode:
+            words = _key_words(cfg, keys_hi, words)
+        return fused.fused_search(cfg, mode, state, keys_hi, keys_lo, words)
     if batching in ("pallas", "auto"):
         batching = "pallas" if pallas_search_eligible(cfg) else "vmap"
     if batching == "vmap":
-        return _search_batch_vmap(cfg, mode, state, keys_hi, keys_lo)
+        return _search_batch_vmap(cfg, mode, state, keys_hi, keys_lo, words)
     if batching == "pallas":
         from repro_torch.kernels import ops
         return ops.probe_direct(cfg, state, keys_hi, keys_lo, mode)
     raise ValueError(f"unknown batching {batching!r}")
 
 
+def _scan_each(cfg: DashConfig, mode: str, state: DashState, keys_hi, keys_lo,
+               words, op):
+    """Run ``op(seg, b, h2, hi, lo, words, i)`` for one key per step, in
+    batch order. Returns the (n,) statuses."""
+    keys_hi, keys_lo, words, h1, h2 = _query_parts(cfg, keys_hi, keys_lo, words)
+    seg, b = locate(cfg, mode, state, h1)
+    res = _per_key(keys_hi.shape[0], lambda i: (op(
+        seg[i], b[i], h2[i], keys_hi[i], keys_lo[i], words[i], i),))
+    return res[0] if res else _zeros(keys_hi, torch.int32)
+
+
 def delete_batch(cfg: DashConfig, mode: str, state: DashState,
                  keys_hi, keys_lo, valid=None,
-                 batching: str = "segment", capacity: int | None = None):
-    """Batch delete, in place. Returns (state, statuses)."""
+                 batching: str = "segment", capacity: int | None = None,
+                 words=None):
+    """Batch delete, in place. Returns (state, statuses). Pointer mode takes
+    the keys' (n, W) ``words`` and runs the scan engine."""
     n = keys_hi.shape[0]
     valid = _default_valid(keys_hi, valid)
-    if batching == "scan":
-        h1, h2, _ = _bulk_hash(keys_hi, keys_lo)
-        seg, b = locate(cfg, mode, state, h1)
-        res = _per_key(n, lambda i: (delete_in_segment(
-            cfg, state, seg[i], b[i], h2[i], keys_hi[i], keys_lo[i], valid[i]),))
-        return state, (res[0] if res else _zeros(keys_hi, torch.int32))
+    if batching == "scan" or cfg.pointer_mode:
+        return state, _scan_each(
+            cfg, mode, state, keys_hi, keys_lo, words,
+            lambda seg, b, h2, hi, lo, w, i: delete_in_segment(
+                cfg, state, seg, b, h2, hi, lo, valid[i], w))
     if batching != "segment":
         raise ValueError(f"unknown batching {batching!r}")
     cap = min(capacity or _pow2_at_least(n), _pow2_at_least(n))
@@ -483,17 +548,17 @@ def delete_batch(cfg: DashConfig, mode: str, state: DashState,
 
 def update_batch(cfg: DashConfig, mode: str, state: DashState,
                  keys_hi, keys_lo, vals, valid=None,
-                 batching: str = "segment", capacity: int | None = None):
-    """Set payload for existing keys, in place. Returns (state, statuses)."""
+                 batching: str = "segment", capacity: int | None = None,
+                 words=None):
+    """Set payload for existing keys, in place. Returns (state, statuses).
+    Pointer mode takes the keys' (n, W) ``words`` and runs the scan engine."""
     n = keys_hi.shape[0]
     valid = _default_valid(keys_hi, valid)
-    if batching == "scan":
-        h1, h2, _ = _bulk_hash(keys_hi, keys_lo)
-        seg, b = locate(cfg, mode, state, h1)
-        res = _per_key(n, lambda i: (update_in_segment(
-            cfg, state, seg[i], b[i], h2[i], keys_hi[i], keys_lo[i], vals[i],
-            valid[i]),))
-        return state, (res[0] if res else _zeros(keys_hi, torch.int32))
+    if batching == "scan" or cfg.pointer_mode:
+        return state, _scan_each(
+            cfg, mode, state, keys_hi, keys_lo, words,
+            lambda seg, b, h2, hi, lo, w, i: update_in_segment(
+                cfg, state, seg, b, h2, hi, lo, vals[i], valid[i], w))
     if batching != "segment":
         raise ValueError(f"unknown batching {batching!r}")
     cap = min(capacity or _pow2_at_least(n), _pow2_at_least(n))
@@ -530,6 +595,10 @@ def changed_rows(prev_version, live_version):
 
 
 def record_hashes(cfg: DashConfig, state: DashState, hi, lo):
-    """(h1, h2) for stored records of any shape (hashed on the card)."""
+    """(h1, h2) for stored records of any shape (hashed on the card). In
+    pointer mode ``lo`` is a heap handle: the identity pair is re-folded
+    from the heap row (the 'dereference on rehash' cost of Sec. 4.5)."""
+    if cfg.pointer_mode:
+        hi, lo = hashing.key_identity_from_words(bk.heap_rows(cfg, state, lo))
     h1, h2, _ = _bulk_hash(hi.reshape(-1).contiguous(), lo.reshape(-1).contiguous())
     return h1.reshape(hi.shape), h2.reshape(hi.shape)

@@ -114,3 +114,40 @@ def split_keys(keys64, device) -> tuple:
     hi, lo = np_split_keys(keys64)
     return (torch.from_numpy(hi.view(np.int32)).to(device),
             torch.from_numpy(lo.view(np.int32)).to(device))
+
+
+# ---------------------------------------------------------------------------
+# pointer mode: the identity pair of a variable-length key (paper Sec. 4.5)
+# ---------------------------------------------------------------------------
+
+FOLD_SEED_HI = 0xDEADBEEF
+FOLD_SEED_LO = 0x12345678
+
+
+def fold_words(words, seed: int):
+    """Fold a (..., W) word tensor into one 32-bit word per row (int32
+    bits), mod 2**32 in int64 like ``hash_pair``."""
+    w = u32(words)
+    h = torch.full(w.shape[:-1], int(seed), dtype=torch.int64, device=w.device)
+    for i in range(w.shape[-1]):
+        h = (_mix32(h ^ w[..., i]) + _GOLDEN + ((h << 6) & MASK32)
+             + (h >> 2)) & MASK32
+    return word(_mix32(h))
+
+
+def np_fold_words(words, seed: int):
+    words = np.asarray(words, dtype=np.uint64) & MASK32
+    h = np.full(words.shape[:-1], np.uint64(int(seed)), dtype=np.uint64)
+    for i in range(words.shape[-1]):
+        h = (_np_mix32(h ^ words[..., i]) + np.uint64(_GOLDEN)
+             + ((h << np.uint64(6)) & MASK32) + (h >> np.uint64(2))) & MASK32
+    return _np_mix32(h).astype(np.uint32)
+
+
+def key_identity_from_words(words):
+    """(hi, lo) identity pair of each (W,) key-word row."""
+    return fold_words(words, FOLD_SEED_HI), fold_words(words, FOLD_SEED_LO)
+
+
+def np_key_identity_from_words(words):
+    return np_fold_words(words, FOLD_SEED_HI), np_fold_words(words, FOLD_SEED_LO)

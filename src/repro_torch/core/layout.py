@@ -79,9 +79,9 @@ class DashConfig:
     lh_base_log2: int = 2          # N0 = 2**this initial segments for linear hashing
     lh_base_stash: int = 2         # fixed stash buckets before chaining (Sec. 5.1)
     # --- misc ---
-    pointer_mode: bool = False     # variable-length keys: not ported yet
-    key_heap_size: int = 0
-    key_heap_words: int = 4
+    pointer_mode: bool = False     # variable-length keys via key-heap handles
+    key_heap_size: int = 0         # number of key-heap entries (pointer mode)
+    key_heap_words: int = 4        # u32 words per heap key (16 bytes default)
 
     def __post_init__(self):
         if self.num_buckets & (self.num_buckets - 1) != 0:
@@ -92,8 +92,6 @@ class DashConfig:
             raise ValueError("num_ofp must be in [0, 4]")
         if self.init_depth > self.dir_depth_max:
             raise ValueError("init_depth must not exceed dir_depth_max")
-        if self.pointer_mode:
-            raise NotImplementedError("pointer mode is not ported yet")
 
     @property
     def buckets_total(self) -> int:
@@ -205,8 +203,8 @@ class DashState(NamedTuple):
     n_items: torch.Tensor       # () int32
     n_splits: torch.Tensor      # () int32
     n_doublings: torch.Tensor   # () int32
-    key_heap: torch.Tensor      # (1, W) u32 — pointer-mode key storage (unused)
-    heap_top: torch.Tensor      # () int32
+    key_heap: torch.Tensor      # (H, W) u32 — pointer-mode key storage ((1, W) otherwise)
+    heap_top: torch.Tensor      # () int32 — next key-heap row (bump pointer)
 
 
 #: the reference dtype of every plane; "u32" planes are int32 tensors here
@@ -238,6 +236,7 @@ def make_state(cfg: DashConfig, mode: str = "eh", device=None) -> DashState:
         raise ValueError(mode)
     if n_init > S:
         raise ValueError("initial segments exceed max_segments")
+    heap_h = cfg.key_heap_size if cfg.pointer_mode else 1
     lh_dir = np.full(S, -1, dtype=np.int32)
     lh_dir[:n_init] = np.arange(n_init)
 
@@ -269,7 +268,7 @@ def make_state(cfg: DashConfig, mode: str = "eh", device=None) -> DashState:
         stash_active=full((S,), min(cfg.num_stash, cfg.lh_base_stash)
                           if mode == "lh" else cfg.num_stash),
         n_items=scalar(0), n_splits=scalar(0), n_doublings=scalar(0),
-        key_heap=z(1, cfg.key_heap_words),
+        key_heap=z(heap_h, cfg.key_heap_words),
         heap_top=scalar(0),
     )
 
@@ -315,3 +314,35 @@ def load_factor(cfg: DashConfig, state: DashState):
     """records stored / capacity of *allocated* segments (paper's metric)."""
     return state.n_items.to(torch.float32) / (
         state.watermark.to(torch.float32) * cfg.seg_capacity)
+
+
+# --- copy-on-write plane schema ---------------------------------------------
+# The state is grouped into individually publishable planes. The two record
+# groups are scattered at bucket-row granularity by the COW publish
+# (core/epoch.py:SnapshotRegistry.publish_cow): a row is copied into the next
+# snapshot iff its version word changed (core/bucket.py's version
+# discipline); everything else is aliased or copied whole.
+
+#: record planes whose bucket axis spans buckets_total (normal + stash rows);
+#: the flattened row index of version[..., b] addresses the same row in all.
+BT_PLANES = ("fp", "key_hi", "key_lo", "val", "meta", "version")
+#: record planes whose bucket axis spans only the num_buckets normal rows
+NB_PLANES = ("ofp", "ometa")
+#: per-segment metadata: rewritten by SMOs/recovery without per-row version
+#: words — compared on the card at publish, copied whole when changed
+SEG_META_PLANES = ("local_depth", "seg_state", "side_link", "seg_version",
+                   "lh_dir", "stash_active")
+#: the fully-expanded directory: aliased across versions until an SMO
+#: publishes a new mapping
+DIR_PLANES = ("dir",)
+#: everything else: scalars + the pointer-mode key heap, copied every publish
+SCALAR_PLANES = ("global_depth", "watermark", "clean", "gver", "lh_word",
+                 "n_items", "n_splits", "n_doublings", "key_heap", "heap_top")
+assert set(BT_PLANES + NB_PLANES + SEG_META_PLANES + DIR_PLANES
+           + SCALAR_PLANES) == set(DashState._fields)
+
+
+def state_nbytes(state: DashState) -> int:
+    """Total bytes of one table version — the whole-state copy cost a
+    publish would pay without COW."""
+    return int(sum(t.numel() * t.element_size() for t in state))

@@ -219,6 +219,24 @@ def lazy_recover_touched(cfg: DashConfig, mode: str, state: DashState,
     return _recover_list(cfg, mode, state, dirty), dirty
 
 
+def heap_top_floor(cfg: DashConfig, state: DashState) -> DashState:
+    """Pointer-mode reopen guard: raise ``heap_top`` past the highest heap
+    handle any live record references (capped at the heap size), so a
+    reopen that lost the newest ``heap_top`` never hands out a row an
+    acknowledged record still points at. Records are the allocated slots
+    of every bucket row. Updates ``heap_top`` in place; returns the state."""
+    if not cfg.pointer_mode or cfg.key_heap_size <= 0:
+        return state
+    slots = torch.arange(cfg.num_slots, device=state.meta.device)
+    live = ((layout.meta_alloc(state.meta)[..., None] >> slots) & 1) == 1
+    handles = u32(state.key_lo)[live]
+    floor = int(handles.max()) + 1 if handles.numel() else 0
+    floor = min(floor, cfg.key_heap_size)
+    if floor > int(state.heap_top):
+        state.heap_top.fill_(floor)
+    return state
+
+
 # ---------------------------------------------------------------------------
 # crash simulation (host-side numpy surgery on the planes)
 # ---------------------------------------------------------------------------

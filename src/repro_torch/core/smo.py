@@ -338,6 +338,12 @@ class BulkSplitTask:
         self._ok = None
         self.stage = "phase1"
 
+    def describe(self) -> dict:
+        """Span args of the serving frontend's ``smo`` span: what this SMO
+        does, sized."""
+        return {"kind": "eh_bulk_split", "segments": int(self.old_np.size),
+                "shortfall": int(self.shortfall)}
+
     @property
     def touched(self) -> np.ndarray:
         """Segment ids this task rebuilds (source + target of every lane)."""
@@ -400,6 +406,10 @@ class BulkSplitNextTask:
         self.stage = "dispatch"
         self.touched = np.zeros(0, np.int32) if touched is None \
             else np.asarray(touched, np.int32).reshape(-1)
+
+    def describe(self) -> dict:
+        """Span args of the serving frontend's ``smo`` span."""
+        return {"kind": "lh_split_next", "stride": int(self.R)}
 
     def pump(self, state: DashState):
         """Advance one stage. Returns (state, done)."""

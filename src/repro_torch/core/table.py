@@ -78,6 +78,7 @@ class InsertJob:
     on the table's device."""
     hi: torch.Tensor
     lo: torch.Tensor
+    w: torch.Tensor | None           # pointer mode: (n, W) key words
     vals: torch.Tensor
     out: torch.Tensor                # per-input statuses (NEED_SPLIT until done)
     pending: torch.Tensor            # input indices still unplaced
@@ -127,11 +128,25 @@ class DashTable:
         self.insert_rounds = 0        # stat: insert dispatches (retry rounds included)
         self.free_segments: list = []  # merged-away ids, recycled by splits
         self.dirty = DirtyTracker(cfg.max_segments, self.device)
+        self.writeback = None         # durable pool engine (not ported yet)
+        self.obs = None               # observability bundle (obs/), optional
 
     # -- key plumbing --------------------------------------------------------
 
-    def _prep(self, keys):
-        return hashing.split_keys(keys, self.device)
+    def _prep(self, keys=None, words=None):
+        """(hi, lo, words) word tensors of a batch. Pointer mode takes the
+        keys as (n, key_heap_words) uint32 rows and folds their identity
+        pair; otherwise ``keys`` are uint64 and ``words`` is None."""
+        if not self.cfg.pointer_mode:
+            return (*hashing.split_keys(keys, self.device), None)
+        if words is None:
+            raise ValueError("pointer mode takes `words` (n, W) uint32")
+        words = np.asarray(words, dtype=np.uint32)
+        if words.ndim != 2 or words.shape[1] != self.cfg.key_heap_words:
+            raise ValueError(f"words must be (n, {self.cfg.key_heap_words})")
+        hi, lo = hashing.np_key_identity_from_words(words)
+        return tuple(torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
+                     .to(self.device) for a in (hi, lo, words))
 
     def _values(self, values):
         return torch.from_numpy(
@@ -202,15 +217,20 @@ class DashTable:
         self.state, recovered = recovery.lazy_recover_touched(
             self.cfg, self.mode, self.state, touched, note=note)
         self.recovered_segments += len(recovered)
+        if self.obs is not None:
+            for seg in recovered:
+                self.obs.registry.counter("table.lazy_recoveries").inc()
+                self.obs.tracer.instant("lazy_recovery", "recovery",
+                                        segment=int(seg))
 
     # -- public ops -----------------------------------------------------------
 
-    def insert_begin(self, keys, values) -> InsertJob:
+    def insert_begin(self, keys=None, values=None, words=None) -> InsertJob:
         """Start a resumable insert batch (see InsertJob)."""
-        hi, lo = self._prep(keys)
+        hi, lo, w = self._prep(keys, words)
         n = hi.shape[0]
         return InsertJob(
-            hi=hi, lo=lo, vals=self._values(values),
+            hi=hi, lo=lo, w=w, vals=self._values(values),
             out=torch.full((n,), NEED_SPLIT, dtype=torch.int32, device=self.device),
             pending=torch.arange(n, device=self.device))
 
@@ -228,7 +248,8 @@ class DashTable:
         batching, capacity = self._write_plan(seg, pending.numel())
         self.state, statuses, activated = engine.insert_batch(
             self.cfg, self.mode, self.state, hi, lo, job.vals[pending], None,
-            batching=batching, capacity=capacity)
+            batching=batching, capacity=capacity,
+            words=None if job.w is None else job.w[pending])
         job.out[pending] = statuses
         job.pending = pending[statuses == NEED_SPLIT]
         job.first = False
@@ -242,10 +263,10 @@ class DashTable:
         seg = self._segments_of(job.hi[job.pending], job.lo[job.pending])
         return torch.unique(seg[seg >= 0]).cpu().numpy()
 
-    def insert(self, keys, values, max_retries: int = 256):
+    def insert(self, keys=None, values=None, words=None, max_retries: int = 256):
         """Stop-the-world insert: pump the resumable job, splitting inline
         whenever a round reports pressure. Returns statuses (numpy)."""
-        job = self.insert_begin(keys, values)
+        job = self.insert_begin(keys, values, words)
         for _ in range(max_retries):
             activated = self.insert_round(job)
             if activated:
@@ -255,38 +276,44 @@ class DashTable:
             self._on_pressure(self.pressure_hints(job))
         raise TableFullError("insert retry budget exhausted")
 
-    def search(self, keys):
+    def search(self, keys=None, words=None):
         """(found bool, values uint32) numpy arrays."""
-        hi, lo = self._prep(keys)
+        hi, lo, w = self._prep(keys, words)
         if self.lazy_recovery:
             self._ensure_recovered(self._segments_of(hi, lo))
         found, vals = engine.search_batch(self.cfg, self.mode, self.state, hi, lo,
-                                          batching=self._search_plan(hi.shape[0]))
+                                          batching=self._search_plan(hi.shape[0]),
+                                          words=w)
         return found.cpu().numpy(), vals.cpu().numpy().view(np.uint32)
 
-    def delete(self, keys):
-        hi, lo = self._prep(keys)
+    def delete(self, keys=None, words=None):
+        hi, lo, w = self._prep(keys, words)
         seg = self._segments_of(hi, lo)
         self._ensure_recovered(seg)
         self.dirty.note_segments(seg)
         batching, capacity = self._write_plan(seg, seg.numel(), fused_ok=False)
         self.state, statuses = engine.delete_batch(
             self.cfg, self.mode, self.state, hi, lo,
-            batching=batching, capacity=capacity)
+            batching=batching, capacity=capacity, words=w)
         return statuses.cpu().numpy()
 
-    def update(self, keys, values):
-        hi, lo = self._prep(keys)
+    def update(self, keys=None, values=None, words=None):
+        hi, lo, w = self._prep(keys, words)
         seg = self._segments_of(hi, lo)
         self._ensure_recovered(seg)
         self.dirty.note_segments(seg)
         batching, capacity = self._write_plan(seg, seg.numel(), fused_ok=False)
         self.state, statuses = engine.update_batch(
             self.cfg, self.mode, self.state, hi, lo, self._values(values),
-            batching=batching, capacity=capacity)
+            batching=batching, capacity=capacity, words=w)
         return statuses.cpu().numpy()
 
     # -- lifecycle -------------------------------------------------------------
+
+    def attach_obs(self, obs):
+        """Bind an observability bundle (obs/): the table counts lazy
+        recoveries and staged SMOs into its registry."""
+        self.obs = obs
 
     def graceful_shutdown(self):
         """Set the clean-shutdown marker: the next restart skips recovery."""
@@ -348,6 +375,10 @@ class DashTable:
         """Record a staged SMO's dirty footprint (rebuilt + directory planes)."""
         self.dirty.note_segments(task.touched)
         self.dirty.note_dir()
+        if self.obs is not None:
+            self.obs.registry.counter("table.smo_tasks").inc()
+            self.obs.registry.counter("table.smo_segments").inc(
+                int(np.asarray(task.touched).size))
 
 
 class DashEH(DashTable):

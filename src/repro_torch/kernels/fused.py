@@ -83,9 +83,13 @@ def _candidate_columns(cfg: DashConfig, b):
 
 
 def _fused_search_direct(cfg: DashConfig, mode: str, state: DashState,
-                         keys_hi, keys_lo):
-    """One gather of all candidate rows per query + one dense compare."""
+                         keys_hi, keys_lo, words=None):
+    """One gather of all candidate rows per query + one dense compare.
+    Pointer mode folds the (Q, W) key ``words`` into the identity pair and
+    compares the heap rows the candidate slots point at."""
     SL, ns, window = cfg.num_slots, cfg.num_stash, cfg.probe_window
+    if cfg.pointer_mode:
+        keys_hi, keys_lo = hashing.key_identity_from_words(words)
     h1, h2, _ = bulk_hash(keys_hi, keys_lo)
     fpv = hashing.fingerprint(h2)
     seg, b = ops.locate_batch(cfg, mode, state, h1)
@@ -96,8 +100,12 @@ def _fused_search_direct(cfg: DashConfig, mode: str, state: DashState,
     m = ((alloc[..., None] >> slots) & 1) == 1           # (Q, W, SL)
     if cfg.use_fingerprints:
         m = m & (state.fp[segb, bx, :SL] == fpv[:, None, None])
-    m = (m & (state.key_hi[segb, bx] == keys_hi[:, None, None])
-         & (state.key_lo[segb, bx] == keys_lo[:, None, None]))
+    m = m & (state.key_hi[segb, bx] == keys_hi[:, None, None])
+    if cfg.pointer_mode:
+        rows = bk.heap_rows(cfg, state, state.key_lo[segb, bx])   # (Q, W, SL, KW)
+        m = m & (rows == words[:, None, None, :]).all(-1)
+    else:
+        m = m & (state.key_lo[segb, bx] == keys_lo[:, None, None])
     if ns:
         active = state.stash_active[seg]
         col_ok = torch.cat(
@@ -271,12 +279,13 @@ def _fused_search_routed(cfg: DashConfig, mode: str, state: DashState,
 
 
 def fused_search(cfg: DashConfig, mode: str, state: DashState,
-                 keys_hi, keys_lo):
+                 keys_hi, keys_lo, words=None):
     """One-kernel batched lookup over direct-addressed lanes. Returns
     (found, values as int32 words), identical to
-    ``engine.search_batch(batching="vmap")``."""
+    ``engine.search_batch(batching="vmap")``. Configs outside the kernel
+    (pointer mode: pass the (Q, W) key ``words``) take the dense lowering."""
     if not fused_kernel_eligible(cfg):
-        return _fused_search_direct(cfg, mode, state, keys_hi, keys_lo)
+        return _fused_search_direct(cfg, mode, state, keys_hi, keys_lo, words)
     h1, _, fp = bulk_hash(keys_hi, keys_lo)
     seg, b = ops.locate_batch(cfg, mode, state, h1)
     pb = (b + 1) & (cfg.num_buckets - 1)

@@ -72,8 +72,10 @@ def test_config_fields_match():
         assert pc.bytes_per_segment() == cfg.bytes_per_segment()
     with pytest.raises(ValueError):
         tl.DashConfig(num_buckets=48)
-    with pytest.raises(NotImplementedError):
-        tl.DashConfig(pointer_mode=True)
+    # pointer mode is ported: its key heap is sized like the reference's
+    ptr = rl.DashConfig(max_segments=4, pointer_mode=True, key_heap_size=64,
+                        key_heap_words=3)
+    assert_same_state(rl.make_state(ptr), tl.make_state(port_cfg(ptr), device="cpu"))
 
 
 @pytest.mark.parametrize("mode,cfg", [

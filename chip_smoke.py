@@ -18,7 +18,13 @@ Phases, each printed on its own line and each able to fail the run:
      CPU tests' mixed frontend stream through DashFrontend over DashEH and
      over DashLH, with fused and with routed reads (per-op outcomes,
      ``stats()`` apart from the seconds, and the tables equal); a
-     pointer-mode stream (2-word keys in a key heap);
+     pointer-mode stream (2-word keys in a key heap); durable streams whose
+     pool files (under the git-ignored ``build/pools``) must also be
+     byte-identical after every flush: ``persist.create`` for EH and for LH
+     with inserts through splits, deletes and updates, one flush killed at
+     a fixed store, ``reopen`` with lazy reads, ``crash()`` + ``flush()``
+     and a second reopen; a seeded ``FaultPlan`` bit flip quarantined at
+     reopen; one ``chaos.run_schedule`` seed (equal counters);
   3b. ``fused_probe`` and ``fingerprint_probe`` against their plain
      versions on seeded hostile inputs (``kernels/edges.py``): first-hit
      order, fingerprint collisions, the stash gate, out-of-range rows and
@@ -58,6 +64,21 @@ Phases, each printed on its own line and each able to fail the run:
      split; read sojourn p50/p99 of both frontends, publishes and their
      mean bytes against the state, the retried share, the busy share of
      50 traced ticks. Launch counters as on the main path;
+  7c. the durable pool at full width, on the frontend's table after its
+     storm: a fresh pool file (969 MB logical, 433 MB of planes) attached
+     and checkpointed by a full flush; a split storm of 65,536 fresh
+     inserts (the 7b stream's shape) through DashFrontend with
+     flush-on-publish, the scrubber every tick and the flight recorder;
+     the table dropped without ``close()``, reopened without and with
+     checksum verification, the first 1M-key read recovering lazily and
+     every acknowledged key checked; one flush carrying an SMO torn at its
+     commit fence by a ``FaultPlan``, forensics on the dead pool naming
+     exactly that flush's keys as in flight, and every acknowledged key
+     found after a last reopen. Checkpoint seconds, flushes, flushed and
+     staged bytes, flush seconds split into device staging and pool I/O,
+     read sojourn with flush-on-publish, scrubbed rows, both reopen times,
+     the first read, free disk and the busy share of 50 traced ticks.
+     Launch counters as on the main path;
   8. the LH path: a DashLH in the paper's geometry (``max_segments=32768,
      num_stash=4``, ~445 MB of planes) loaded with unique uniform keys in
      batches sized to its stride growth, then the main path's reads,
@@ -68,13 +89,13 @@ Phases, each printed on its own line and each able to fail the run:
      the filled LH table, on lanes and ticks that reach that segment;
      ``fingerprint_probe`` timed at 1M LH lanes;
   9. shrink: a DashEH in the main path's pool geometry loaded with 1M keys,
-     1.6M deleted, ``shrink()``, the survivors and the deleted keys
+     0.8M deleted, ``shrink()``, the survivors and the deleted keys
      checked, then 0.5M fresh keys inserted: the watermark may grow only
      once the freed ids are used up.
 
-Each kernel's ``launches`` in the JSON line is the sum over the three
-paths driven with counters (the EH main path, the frontend and the LH
-path). The last three
+Each kernel's ``launches`` in the JSON line is the sum over the four
+paths driven with counters (the EH main path, the frontend, the durable
+path and the LH path). The last three
 lines are the card line, one JSON object describing every kernel, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 outside a checkout of the repository, it exits nonzero and prints no result.
@@ -83,9 +104,12 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -108,6 +132,11 @@ FE_KEYS = 4_000_000
 FE_FRESH = 1 << 18
 #: the shrink phase: keys loaded (80 % then deleted), then fresh keys
 SHRINK_KEYS = 1_000_000
+#: the durable phase's storm: fresh inserts through flush-on-publish (cut
+#: from 65,536 by the time limit: every flush fences the 969 MB mapping)
+DURABLE_FRESH = 1 << 15
+#: pool files (the emulated PM) live here, under the git-ignored build/
+POOL_DIR = Path(__file__).resolve().parent / "build" / "pools"
 
 KERNELS = {   # name: (source, TPU kernel it replaces)
     "bulk_hash": ("src/repro_torch/kernels/csrc/hashmix.cu",
@@ -424,11 +453,136 @@ def _pointer_stream(device, seed: int):
     return t, out
 
 
+def _fixed_recorder():
+    """A flight recorder whose clocks count calls: the same stream writes
+    the same recorder windows, so pool files compare byte for byte."""
+    from repro_torch.obs import FlightRecorder
+    ticks = iter(range(1 << 40))
+    return FlightRecorder(clock=lambda: float(next(ticks)), wall=lambda: 0.0)
+
+
+def _pool_crc(path) -> int:
+    with open(path, "rb") as f:
+        return zlib.crc32(f.read())
+
+
+def _durable_stream(cfg, mode, device, seed: int, path: str):
+    """A durable table (``persist.create``, a recorder with fixed clocks):
+    inserts through splits (rebuilt rows through the redo log), deletes and
+    updates, each batch flushed; one flush killed at a fixed store; reopen
+    and lazy reads; ``crash()`` + ``flush()``; a second reopen and reads.
+    Every acknowledged key is checked after each reopen. Returns the last
+    table and every answer, among them each flush's bytes and counters and
+    the pool file's CRC after every flush; the last answer is (flushes,
+    rows logged, segments recovered)."""
+    from repro_torch import persist
+    from repro_torch.persist import SimulatedCrash
+    keys, vals = _stream_keys(seed, 6000)
+    t = persist.create(path, cfg, mode=mode, device=device)
+    t.writeback.attach_recorder(_fixed_recorder())
+    out, logged, recovered = [], 0, 0
+
+    def flush():
+        nonlocal logged
+        n = t.flush()
+        wb = t.writeback
+        logged = max(logged, wb.logged_rows)
+        out.append(np.array([n, _pool_crc(path), wb.last_dirty_rows, wb.logged_rows,
+                             wb.staged_bytes, wb.pool.sb.flush_seq]))
+
+    for a, b in ((0, 300), (300, 1500), (1500, 4000)):
+        out.append(t.insert(keys[a:b], vals[a:b]))
+        flush()
+    alive, truth = np.ones(4000, bool), vals[:4000].copy()
+    alive[::9] = False
+    truth[1::7] = vals[::7][:truth[1::7].size] ^ np.uint32(0x5A5A)
+    out.append(t.delete(keys[:4000:9]))
+    out.append(t.update(keys[1:4000:7], truth[1::7]))
+    flush()
+    out.append(t.insert(keys[4000:], vals[4000:]))
+    t.writeback.inject_crash(7)                       # dies before its 8th store
+    try:
+        t.flush()
+        torn = False
+    except SimulatedCrash:
+        torn = True
+    check(torn, f"{mode} durable stream: the injected crash did not fire")
+    for cut in ("torn flush", "crash"):
+        del t
+        t, info = persist.reopen(path, device=device)
+        t.writeback.attach_recorder(_fixed_recorder())
+        out.append(np.array([info[k] for k in sorted(info) if k != "seconds"], np.int64))
+        found, got = t.search(keys)
+        check((found[:4000] == alive).all() and (got[:4000][alive] == truth[alive]).all(),
+              f"{mode} durable stream: an acknowledged key is wrong after the {cut}")
+        out += [found, got]
+        recovered += t.recovered_segments
+        out.append(np.array([t.recovered_segments, t.n_items]))
+        flush()
+        if cut == "torn flush":
+            t.crash(np.random.default_rng(seed), lock_frac=0.2, n_dups=8,
+                    interrupt_smo=mode == "eh")
+            flush()
+    out.append(np.array([sum(o.size == 6 for o in out), logged, recovered]))
+    return t, out
+
+
+def _fault_stream(cfg, device, seed: int, path: str):
+    """A closed pool rotted by a seeded ``FaultPlan`` (bit flips in rows and
+    in checksum words), reopened with verification: the quarantine report,
+    the reopen record and every read. Returns the table and the answers."""
+    from repro_torch import persist
+    from repro_torch.persist import FaultPlan, PmPool
+    keys, vals = _stream_keys(seed, 3000)
+    t = persist.create(path, cfg, device=device)
+    out = [t.insert(keys, vals)]
+    t.close()
+    plan = FaultPlan(seed=seed, flip_csum_frac=0.3)
+    pool = PmPool.open(path, faults=plan)
+    plan.flip_bits(pool, n=8)
+    pool.close()
+    del t
+    t, info = persist.reopen(path, device=device)
+    out.append(np.array([info[k] for k in sorted(info) if k != "seconds"], np.int64))
+    out.append(np.array([[r["seg"], r["bucket"], r["row"], r.get("lost_records", -1)]
+                         for r in t.lost_report]))
+    out += list(t.search(keys))
+    t.close()
+    out.append(np.array([_pool_crc(path)]))
+    check(info["quarantined_bt"] + info["quarantined_nb"] > 0, "no row was quarantined")
+    return t, out
+
+
+def _chaos_stream(device, seed: int, path: str):
+    """One seeded chaos schedule (tears, flips, EIO bursts, scrubs, clean
+    restarts) on the durable table; its counters as the answer."""
+    import dataclasses
+    from repro_torch.persist import chaos
+    os.makedirs(path, exist_ok=True)
+    res = chaos.run_schedule(seed, path, min_tears=1, min_flips=1, device=device)
+    check(res.wrong_reads == res.silent_lost == res.forensics_contradictions == 0,
+          f"chaos seed {seed}: {res}")
+    vals = [int(v) for k, v in dataclasses.asdict(res).items()]
+    return None, [np.array(vals)]
+
+
 def phase_cuda_vs_cpu():
     from repro_torch import interop
     from repro_torch.core import DashConfig
     eh = DashConfig(max_segments=64, dir_depth_max=10, init_depth=3)
     lh = DashConfig(max_segments=256, num_stash=4)
+
+    def pool(name, dev):   # the card's run and the CPU's run write apart
+        return str(POOL_DIR / f"{name}-{'cpu' if dev == 'cpu' else 'card'}.pool")
+
+    durable = {   # name: run(dev) -> (table, answers), pools at pool(name, dev)
+        "durable eh": lambda dev: _durable_stream(eh, "eh", dev, 12, pool("durable eh", dev)),
+        "durable lh": lambda dev: _durable_stream(lh, "lh", dev, 13, pool("durable lh", dev)),
+        "fault plan": lambda dev: _fault_stream(eh, dev, 14, pool("fault plan", dev)),
+        "chaos": lambda dev: _chaos_stream(dev, 1, pool("chaos", dev)),
+    }
+    shutil.rmtree(POOL_DIR, ignore_errors=True)
+    POOL_DIR.mkdir(parents=True)
     streams = {
         "eh": lambda dev: _op_stream(eh, dev, 5),
         "lh": lambda dev: _op_stream(lh, dev, 6, "DashLH"),
@@ -438,6 +592,7 @@ def phase_cuda_vs_cpu():
         "frontend": lambda dev: _frontend_stream(dev, 10),
         "frontend routed reads": lambda dev: _frontend_stream(dev, 10, fused_reads=False),
         "pointer": lambda dev: _pointer_stream(dev, 11),
+        **durable,
     }
     t0 = time.perf_counter()
     facts = {}
@@ -447,10 +602,15 @@ def phase_cuda_vs_cpu():
         check(len(out_gpu) == len(out_cpu), f"{name}: answer counts differ")
         for i, (a, b) in enumerate(zip(out_gpu, out_cpu)):
             check(np.array_equal(a, b), f"{name}: answer {i} differs between cuda and cpu")
-        a, b = interop.state_to_numpy(t_gpu.state), interop.state_to_numpy(t_cpu.state)
-        bad = [k for k in a if a[k].tobytes() != b[k].tobytes()]
-        check(not bad, f"{name}: cuda and cpu states differ in {bad}")
+        if t_gpu is not None:
+            a, b = interop.state_to_numpy(t_gpu.state), interop.state_to_numpy(t_cpu.state)
+            bad = [k for k in a if a[k].tobytes() != b[k].tobytes()]
+            check(not bad, f"{name}: cuda and cpu states differ in {bad}")
+        if name in durable and name != "chaos":
+            with open(pool(name, DEVICE), "rb") as f, open(pool(name, "cpu"), "rb") as g:
+                check(f.read() == g.read(), f"{name}: cuda and cpu pool files differ")
         facts[name] = (t_gpu, out_gpu)
+    shutil.rmtree(POOL_DIR, ignore_errors=True)
     t_eh, t_lh = facts["eh"][0], facts["lh"][0]
     check(t_eh.n_segments > 8, "op stream made too few splits")
     check(t_lh.n_segments > 8, "LH stream made too few stride splits")
@@ -479,6 +639,17 @@ def phase_cuda_vs_cpu():
     check(out[3][:2000].all() and not out[3][2000:].any() and out[-1][0] > 2,
           f"pointer stream: {int(out[3].sum())} of 2000 keys found, "
           f"{out[-1][0]} segments")
+    durable_facts = []
+    for name in ("durable eh", "durable lh"):
+        n_flushes, logged, recovered = facts[name][1][-1]
+        check(logged > 0, f"{name}: no rebuilt row went through the redo log")
+        check(recovered > 0, f"{name}: nothing was recovered after a reopen")
+        durable_facts.append(f"{name.split()[1]} {n_flushes} flushes, {logged} rows "
+                             f"logged, {recovered} segments recovered")
+    _, out = facts["fault plan"]
+    durable_facts.append(f"bit rot: {len(out[2])} rows quarantined")
+    durable_facts.append("chaos seed 1: " + ", ".join(
+        f"{k} {v}" for k, v in zip(("ops", "flushes", "crashes"), facts["chaos"][1][0][1:4])))
     log(f"phase cuda_vs_cpu: ok byte-identical states after 12000 inserts, "
         f"{t_eh.n_segments} segments, deletes/updates/searches; LH stream "
         f"{t_lh.n_segments} segments; crash streams (EH with an interrupted split, "
@@ -486,8 +657,9 @@ def phase_cuda_vs_cpu():
         f"{facts['lh crash'][0].recovered_segments} segments lazily; shrink stream "
         f"{merges} merges, {freed - (len(refill) - 1)} freed ids recycled; "
         f"frontend streams (fused / routed reads; SMO stages / retried reads) "
-        f"{', '.join(fe_counts)}; pointer stream {out[-1][0]} segments, heap_top "
-        f"{out[-1][1]} ({time.perf_counter() - t0:.1f}s)")
+        f"{', '.join(fe_counts)}; pointer stream {t_ptr.n_segments} segments, heap_top "
+        f"{int(t_ptr.state.heap_top)}; durable streams with byte-identical pool files "
+        f"after every flush ({'; '.join(durable_facts)}) ({time.perf_counter() - t0:.1f}s)")
 
 
 def phase_edges():
@@ -1054,7 +1226,9 @@ def phase_frontend(cfg, n_keys: int, n_fresh: int, report, card: str):
     fresh inserts with reads, updates and YCSB-A ops through DashFrontend
     (max_batch 256), and the same stream through StopTheWorldFrontend on a
     clone of the loaded state. The launch counters are set to 0 just before
-    the DashFrontend run and read just after."""
+    the DashFrontend run and read just after. Returns (the phase's numbers,
+    what the durable phase goes on from: the table after its storm, the
+    loaded keys, the fresh keys it acknowledged, the keys it updated)."""
     from repro_torch.core import DashEH, engine, layout
     from repro_torch.core.epoch import shared_planes
     from repro_torch.kernels import fused, hashmix, probe
@@ -1193,7 +1367,10 @@ def phase_frontend(cfg, n_keys: int, n_fresh: int, report, card: str):
         f"no snapshot plane on live storage; fused_probe exact on the pinned snapshot "
         f"mid-split ({state['mid_split']} lanes found); launches {launches} "
         f"({out['seconds']:.1f}s) [{card}]")
-    return out
+    # the durable phase goes on from the DashFrontend's table
+    updated = np.array([op.key for op in ops if op.kind == fe.UPDATE], np.uint64)
+    return out, dict(table=t, loaded=loaded, fresh=fresh[:len(blocks) * 256],
+                     updated=updated)
 
 
 def _check_snapshot_probe(f, loaded, n: int = 256):
@@ -1235,6 +1412,254 @@ def _records(t):
     key = (layout.u32(st.key_hi[bits]) << 32) | layout.u32(st.key_lo[bits])
     key, order = torch.sort(key)
     return key, layout.u32(st.val[bits])[order]
+
+
+def _acked_truth(carry, fresh2):
+    """(keys, values) of every key the frontend phase and the durable storm
+    acknowledged: loaded keys at their load value, or the updated value if
+    any acknowledged update reached them, and the fresh inserts."""
+    loaded = carry["loaded"]
+    vals = _expected_values(loaded)
+    upd = np.isin(loaded, carry["updated"])
+    post = ((vals.astype(np.int64) + 0x9E37) & 0x7FFFFFFF).astype(np.uint32)
+    post[post == 0] = 1
+    vals[upd] = post[upd]
+    fresh = np.concatenate([carry["fresh"], fresh2])
+    return np.concatenate([loaded, fresh]), np.concatenate([vals, _expected_values(fresh)])
+
+
+def _check_acked(t, keys, vals, what: str, B: int = 1 << 20):
+    for a in range(0, keys.size, B):
+        f, v = t.search(keys[a:a + B])
+        check(f.all(), f"{what}: {int((~f).sum())} acknowledged keys missing at {a}")
+        check((v == vals[a:a + B]).all(), f"{what}: a wrong value at {a}")
+
+
+def _keys_into_fullest_segment(t, start: int, n: int):
+    """``n`` fresh keys (from counter ``start`` on) that the EH directory
+    routes to the segment holding the most records, picked on the host
+    (no kernel launch): inserting them splits that segment."""
+    from repro_torch.core import hashing, layout
+    counts = layout.meta_count(t.state.meta).sum(1)[:t.n_segments]
+    seg = int(torch.argmax(counts))
+    dirv = t.state.dir.cpu().numpy()
+    picked = []
+    while sum(k.size for k in picked) < n:
+        cand = distinct_keys(start, 1 << 22)
+        start += 1 << 22
+        h1 = hashing.np_hash1(*hashing.np_split_keys(cand))
+        picked.append(cand[dirv[h1 >> np.uint32(32 - t.cfg.dir_depth_max)] == seg])
+    return seg, int(counts[seg]), np.concatenate(picked)[:n]
+
+
+def phase_durable(carry, report, card: str, n_fresh: int = DURABLE_FRESH):
+    """The durable pool at full width, on the frontend phase's table after
+    its storm (the main path's geometry, ~4.26M keys): a fresh pool file
+    is attached and checkpointed by its first (full) flush; a storm of
+    ``n_fresh`` fresh inserts with reads, updates and YCSB-A ops runs
+    through DashFrontend with flush-on-publish, the scrubber (every tick)
+    and the flight recorder; the table is dropped without ``close()`` and
+    reopened without and with checksum verification, the first 1M-key read
+    recovers lazily and every acknowledged key is checked; then fresh keys
+    routed to the fullest segment are inserted 128 at a time, each batch
+    flushed, until one splits it: that flush (it carries the SMO through
+    the redo log) is torn at its commit fence by a ``FaultPlan``, the dead
+    pool's forensics must name exactly its keys as in flight, and a reopen
+    must find every acknowledged key. The launch counters are set to 0
+    just before the storm and read after the last reopen."""
+    import gc
+    from repro_torch import persist
+    from repro_torch.kernels import fused, hashmix, probe
+    from repro_torch.obs import FlightRecorder, forensics
+    from repro_torch.persist import FaultPlan, PmPool, TornPersist, WritebackEngine
+    from repro_torch.serving import frontend as fe
+    t_phase = time.perf_counter()
+    POOL_DIR.mkdir(parents=True, exist_ok=True)
+    path = str(POOL_DIR / "durable.pool")
+    if os.path.exists(path):
+        os.unlink(path)
+    t = carry.pop("table")
+    cfg, mode = t.cfg, t.mode
+
+    # ---- a fresh pool; its first flush is the checkpoint ----
+    wb = WritebackEngine(PmPool.create(path, cfg, mode))
+    t.state.clean.fill_(False)
+    t.attach_writeback(wb)
+    sync()
+    t0 = time.perf_counter()
+    ckpt_bytes = t.flush()
+    ckpt_s = time.perf_counter() - t0
+    ckpt_staged = wb.last_staged_bytes
+    plane_bytes = wb.pool.plane_bytes
+    check(ckpt_bytes >= plane_bytes, f"the checkpoint wrote {ckpt_bytes} of {plane_bytes} B")
+
+    # ---- the storm, flushed on every publish ----
+    for mod in (hashmix, probe, fused):
+        mod.LAUNCHES = 0
+    # the first two blocks' inserts go to the fullest segment: at least one
+    # staged split commits through flush-on-publish (uniform inserts at
+    # this load factor can fall between two split waves)
+    seg, held, aimed = _keys_into_fullest_segment(t, 5 << 40, 512)
+    fresh2 = np.concatenate([aimed, distinct_keys(3 << 40, n_fresh - aimed.size)])
+    f = fe.DashFrontend(t, max_batch=256, queue_depth=1 << 16, scrub_interval=1,
+                        scrub_rows=512)
+    flush0 = wb.flushes
+    per_flush = []
+
+    def on_tick(f, ticks):
+        if wb.flushes != flush0 + len(per_flush):
+            per_flush.append((wb.last_flush_seconds, wb.last_stage_seconds,
+                              wb.last_flush_bytes, wb.last_staged_bytes))
+
+    blocks = list(_frontend_blocks(carry["loaded"], fresh2, np.random.default_rng(23)))
+    drv = _Feeder(f, blocks, on_tick)
+    t0 = time.perf_counter()
+    drv.run(blocks=len(blocks) // 2)
+    if DEVICE == "cuda":
+        wall, busy, top, ticks_t = busy_share(lambda: drv.run(ticks=50))
+    else:
+        ticks_t = drv.run(ticks=50)
+    drv.run()
+    sync()
+    storm_s = time.perf_counter() - t0
+    st = f.stats()
+    ops = drv.ops
+    rd = np.array([op.kind == fe.READ for op in ops])
+    r_key = np.array([op.key for op, r in zip(ops, rd) if r], np.uint64)
+    res = np.array([op.result for op, r in zip(ops, rd) if r], np.int64)
+    pre = _expected_values(r_key).astype(np.int64)
+    post = (pre + 0x9E37) & 0x7FFFFFFF
+    post[post == 0] = 1
+    check(all(op.found for op, r in zip(ops, rd) if r) and ((res == pre) | (res == post)).all(),
+          "durable storm: a read was not pre- or post-update")
+    check(all(op.status == 0 for op, r in zip(ops, rd) if not r),
+          "durable storm: a write failed")
+    check(st["flush_hint_misses"] == 0 and st["hint_misses"] == 0,
+          f"durable storm: {st['flush_hint_misses']} flush / {st['hint_misses']} "
+          f"publish hint misses")
+    check(st["flushes"] == st["published"] + 1 and st["degraded_events"] == 0,
+          f"{st['flushes']} flushes for {st['published']} publishes")
+    check(f.smo_dispatches > 0 and st["logged_rows"] > 0,
+          f"durable storm: {f.smo_dispatches} SMOs, {st['logged_rows']} rows logged")
+    check(len(per_flush) == wb.flushes - flush0, "a tick ran more than one flush")
+    carry["updated"] = np.concatenate(
+        [carry["updated"], np.array([op.key for op in ops if op.kind == fe.UPDATE], np.uint64)])
+    keys, vals = _acked_truth(carry, fresh2[:len(blocks) * 256])
+    pf = np.array(per_flush)
+    rl = np.asarray(f.read_latencies) * 1e3
+    n_ops = len(ops)
+    out = dict(checkpoint_s=ckpt_s, flushes=len(pf), flush_share=pf[:, 2].mean() / plane_bytes,
+               staged=pf[:, 3].mean(), flush_ms=pf[:, 0].mean() * 1e3,
+               flush_p99_ms=np.percentile(pf[:, 0], 99) * 1e3, stage_ms=pf[:, 1].mean() * 1e3,
+               io_ms=(pf[:, 0] - pf[:, 1]).mean() * 1e3, p50=np.percentile(rl, 50),
+               p99=np.percentile(rl, 99))
+    log(f"  durable [{card}]: checkpoint {ckpt_s:.2f}s ({ckpt_bytes} B written, {ckpt_staged} B "
+        f"staged, planes {plane_bytes} B); storm {len(blocks) * 256} fresh inserts (the first "
+        f"512 into segment {seg}, {held} records), {n_ops} ops "
+        f"in {st['published']} publishes, {f.smo_dispatches} staged SMOs, {storm_s:.1f}s; "
+        f"{len(pf)} flushes, mean {out['flush_share']:.6f} of the plane bytes flushed and "
+        f"{out['staged']:.0f} B staged a flush, {st['logged_rows']} rows logged; flush "
+        f"{out['flush_ms']:.2f} ms mean, p99 {out['flush_p99_ms']:.2f} ms (staging "
+        f"{out['stage_ms']:.2f} ms + pool I/O and fences {out['io_ms']:.2f} ms); read sojourn "
+        f"p50 {out['p50']:.3f} ms p99 {out['p99']:.3f} ms; scrub {st['scrub_scanned_rows']} rows "
+        f"scanned, {st['scrub_repaired_rows']} repaired")
+    if DEVICE == "cuda":
+        log(f"  trace durable [{card}] {ticks_t} ticks: wall {wall * 1e3:.1f} ms, card busy "
+            f"{busy * 1e3:.1f} ms (busy share {busy / wall:.3f}); top: "
+            + "; ".join(f"{k} {v:.2f} ms" for k, v in top))
+
+    # ---- the kill: the table is dropped, never closed ----
+    del f, t, wb, drv, ops
+    gc.collect()
+    t0 = time.perf_counter()
+    t2, info2 = persist.reopen(path, verify=False, device=DEVICE)
+    sync()
+    reopen_s = time.perf_counter() - t0
+    check(not info2["clean"], "the killed pool reopened clean")
+    del t2
+    gc.collect()
+    plan = FaultPlan(seed=31, torn_line_frac=1.0)
+    t0 = time.perf_counter()
+    t3, info3 = persist.reopen(path, verify=True, faults=plan, device=DEVICE)
+    sync()
+    verify_s = time.perf_counter() - t0
+    check(info3["quarantined_bt"] == info3["quarantined_nb"] == 0 and not info3["log_lost"],
+          f"verified reopen quarantined rows: {info3}")
+    t0 = time.perf_counter()
+    fnd, v = t3.search(keys[:1 << 20])
+    sync()
+    first_s = time.perf_counter() - t0
+    first_segments = t3.recovered_segments
+    check(fnd.all() and (v == vals[:1 << 20]).all(), "the first read after the kill is wrong")
+    _check_acked(t3, keys, vals, "after the kill")
+    log(f"  durable [{card}]: reopen {reopen_s:.3f}s without verify ({info2['seconds']:.3f}s "
+        f"inside), {verify_s:.3f}s with verify; first 1M-key read {first_s:.3f}s, "
+        f"{first_segments} segments recovered; {keys.size} acknowledged keys checked")
+
+    # ---- a torn flush that carries an SMO ----
+    wb3 = t3.writeback
+    rec = wb3.attach_recorder(FlightRecorder())
+    seg, held, extra = _keys_into_fullest_segment(t3, 4 << 40, 4096)
+    acked_extra, torn_batch = [], None
+    for a in range(0, extra.size, 128):
+        batch = extra[a:a + 128]
+        segs0 = t3.n_segments
+        check((t3.insert(batch, _expected_values(batch)) == 0).all(), "a torn-phase insert failed")
+        rec.record_ops(fe.INSERT, batch, await_seq=wb3.pool.sb.flush_seq + 1)
+        if t3.n_segments == segs0:
+            t3.flush()
+            acked_extra.append(batch)
+            continue
+        logged0 = wb3.logged_rows
+        # the flush's fences: data, publish, log + recorder window, commit
+        plan.torn_fences = frozenset({plan.fence_calls + 3})
+        try:
+            t3.flush()
+        except TornPersist:
+            torn_batch = batch
+        break
+    check(torn_batch is not None, f"{extra.size} keys into segment {seg} ({held} records) "
+          f"split nothing, or the tear missed")
+    check(wb3.logged_rows > logged0, "the torn flush carried no redo log (no SMO)")
+    rep = forensics.analyze_pool(path)
+    in_flight = {int(k) for op in rep.get("in_flight_ops", ()) for k in op["keys"]}
+    truth = {int(k) for k in torn_batch}
+    contradictions = len(in_flight - truth)
+    check(rep.get("ok") and rep["torn"]["present"] and in_flight == truth,
+          f"forensics: torn {rep.get('torn')}, {len(in_flight)} in flight of {len(truth)}")
+    check(contradictions == 0, f"forensics contradicts the truth on {contradictions} keys")
+    del t3, wb3, rec
+    gc.collect()
+    t4, info4 = persist.reopen(path, verify=False, device=DEVICE)
+    check(info4["flush_seq"] == rep["flush_seq"] + 1, "the torn commit became durable")
+    if acked_extra:
+        keys = np.concatenate([keys] + acked_extra)
+        vals = np.concatenate([vals] + [_expected_values(b) for b in acked_extra])
+    _check_acked(t4, keys, vals, "after the torn flush")
+    f_t, v_t = t4.search(torn_batch)
+    check((v_t[f_t] == _expected_values(torn_batch)[f_t]).all(),
+          "an in-flight key of the torn flush has a wrong value")
+    launches = {"bulk_hash": hashmix.LAUNCHES, "fingerprint_probe": probe.LAUNCHES,
+                "fused_probe": fused.LAUNCHES}
+    for kernel, count in launches.items():
+        check(count > 0 or DEVICE != "cuda", f"{kernel} was not launched on the durable path")
+        r = report.setdefault(kernel, {})
+        r.setdefault("paths", {})["durable"] = count
+        r["launches"] = sum(r["paths"].values())
+    free = shutil.disk_usage(POOL_DIR).free
+    del t4
+    os.unlink(path)
+    out.update(reopen_s=reopen_s, verify_s=verify_s, first_s=first_s,
+               first_segments=first_segments, seconds=time.perf_counter() - t_phase)
+    log(f"  durable [{card}]: {len(acked_extra) * 128} keys into segment {seg} ({held} records) "
+        f"acknowledged, then the 128-key batch that split it torn at its commit fence; "
+        f"{keys.size} acknowledged keys found after the last reopen; free disk "
+        f"{free / 2**30:.1f} GiB")
+    log(f"phase durable: ok every read pre- or post-update, flush_hint_misses 0, every "
+        f"acknowledged key found after the kill, both reopens and the torn flush; forensics "
+        f"named the {len(truth)} in-flight keys of the torn SMO flush, 0 contradictions; "
+        f"launches {launches} ({out['seconds']:.1f}s) [{card}]")
+    return out
 
 
 def phase_shrink(cfg, n_keys: int = SHRINK_KEYS, n_fresh: int = SHRINK_KEYS // 2):
@@ -1415,8 +1840,10 @@ def main(argv=None) -> int:
         phase_probe_kernels(t, keys, misses, report)
         phase_recovery(t, keys, misses, truth)
         del t, truth
-        fe = phase_frontend(DashConfig(max_segments=32768, dir_depth_max=17),
-                            args.fe_keys, FE_FRESH, report, card)
+        fe, carry = phase_frontend(DashConfig(max_segments=32768, dir_depth_max=17),
+                                   args.fe_keys, FE_FRESH, report, card)
+        dur = phase_durable(carry, report, card)
+        del carry
         t, keys, misses, lh, _ = phase_main_path(
             DashConfig(max_segments=32768, num_stash=4), args.lh_keys, 1000, report,
             "DashLH", "lh", lh_batch, LH_RETRIES)
@@ -1436,8 +1863,8 @@ def main(argv=None) -> int:
             f"{r['shape']} ({r['call_ms'] * 1e3:.2f} us per wrapper call; plain "
             f"{r['plain_ms'] * 1e3:.2f} us; bound {r['bound'][0] * 1e3:.3f} us by "
             f"{r['bound'][1]}{floor}), {r['paths']['main']} launches on the main path "
-            f"+ {r['paths']['frontend']} on the frontend path + {r['paths']['lh']} on the "
-            f"LH path [{card}]")
+            f"+ {r['paths']['frontend']} on the frontend path + {r['paths']['durable']} on "
+            f"the durable path + {r['paths']['lh']} on the LH path [{card}]")
     log(f"end to end [{card}]: insert {summary['insert_mops']:.3f} Mops/s, search "
         f"{summary['search_mops']:.3f} Mops/s, tick p50 {summary['tick_p50_ms']:.3f} ms "
         f"p99 {summary['tick_p99_ms']:.3f} ms ({summary['keys']} keys, "
@@ -1451,7 +1878,13 @@ def main(argv=None) -> int:
         f"{fe['stw_p99']:.3f} ms; {fe['ticks']} ticks, {fe['publishes']} publishes of "
         f"{fe['mean_publish_bytes'] / fe['state_bytes']:.6f} of the state on average, "
         f"publish_seconds {fe['publish_seconds']:.2f}, retried share "
-        f"{fe['retried_share']:.5f}; phase {fe['seconds']:.0f}s; "
+        f"{fe['retried_share']:.5f}; phase {fe['seconds']:.0f}s")
+    log(f"end to end durable [{card}]: checkpoint {dur['checkpoint_s']:.2f}s; {dur['flushes']} "
+        f"flushes of {dur['flush_share']:.6f} of the planes, {dur['flush_ms']:.2f} ms mean "
+        f"p99 {dur['flush_p99_ms']:.2f} ms; read sojourn with flush-on-publish p50 "
+        f"{dur['p50']:.3f} ms p99 {dur['p99']:.3f} ms; reopen {dur['reopen_s']:.3f}s "
+        f"(verified {dur['verify_s']:.3f}s), first 1M-key read {dur['first_s']:.3f}s "
+        f"({dur['first_segments']} segments); phase {dur['seconds']:.0f}s; "
         f"total {time.perf_counter() - t0:.0f}s")
     log(card)
     log(kernel_line(report))

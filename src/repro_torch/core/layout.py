@@ -346,3 +346,250 @@ def state_nbytes(state: DashState) -> int:
     """Total bytes of one table version — the whole-state copy cost a
     publish would pay without COW."""
     return int(sum(t.numel() * t.element_size() for t in state))
+
+
+#: the numpy dtype of each ``PLANE_DTYPES`` kind: the reference's dtypes,
+#: which is what the durable pool file holds
+NP_DTYPES = {"u8": np.uint8, "u32": np.uint32, "i32": np.int32, "bool": np.bool_}
+
+
+def log_routing_planes(cfg: DashConfig) -> tuple:
+    """Planes a logged commit snapshots whole. The pointer-mode key heap
+    is exempt: it is append-only and the writeback makes its tail durable
+    in phase 1, before any handle publishes, so it needs no log atomicity
+    — keeping it out keeps SMO-logged flushes O(dirty + heap-tail)
+    instead of O(heap)."""
+    planes = DIR_PLANES + SEG_META_PLANES + SCALAR_PLANES
+    if cfg.pointer_mode:
+        planes = tuple(n for n in planes if n != "key_heap")
+    return planes
+
+
+# --- durable PM-pool file layout ---------------------------------------------
+# The emulated-PM pool (persist/pool.py) persists every plane of the state
+# into one memory-mapped file: a superblock (config / clean marker / flush
+# sequence), the redo log, the flight recorder, the per-row checksums, then
+# the plane regions in ``DashState._fields`` order, each aligned to PM-line
+# granularity. The file holds the reference's bytes: planes in their numpy
+# dtypes (uint32, not the int32 tensors that hold the same bits here). The
+# flattened row index of ``version[..., b]`` addresses the same file row in
+# every BT plane, mirroring the COW publish's row index space.
+
+POOL_ALIGN = 64            # emulated PM line (clwb granularity)
+SUPERBLOCK_BYTES = 4096    # two checksummed superblock slots live here
+
+#: record planes protected by the pool's per-row checksum region: every
+#: bucket-row store writes its row bytes AND its uint32 checksum in the same
+#: emulated store op, so checksums stay consistent at every store boundary —
+#: only sub-store media faults (torn cachelines, bit rot) can desynchronize
+#: them, which is what reopen verification and the scrubber quarantine on.
+CSUM_PLANES = BT_PLANES + NB_PLANES
+
+
+@dataclasses.dataclass(frozen=True)
+class PlaneSpec:
+    """One plane's file region: ``[offset, offset + nbytes)`` holds the
+    C-contiguous array bytes; ``group`` names the flush class (``bt`` /
+    ``nb`` record planes flushed at bucket-row granularity, ``seg`` /
+    ``dir`` compared-then-copied whole, ``scalar`` always copied)."""
+    name: str
+    offset: int
+    shape: tuple
+    dtype: np.dtype
+    group: str
+
+    @property
+    def nbytes(self) -> int:
+        return int(np.prod(self.shape, dtype=np.int64)) * self.dtype.itemsize
+
+    @property
+    def rows(self) -> int:
+        """Flush rows: bucket rows for record planes (leading axes up to and
+        including the bucket axis), 1 for whole-copy planes."""
+        if self.group == "bt" or self.group == "nb":
+            return int(np.prod(self.shape[:self._bucket_axis + 1],
+                               dtype=np.int64))
+        return 1
+
+    @property
+    def _bucket_axis(self) -> int:
+        # the bucket axis is the last for meta/version/ometa (2D rows),
+        # else axis -2
+        return len(self.shape) - 1 if self.name in ("meta", "version",
+                                                    "ometa") else len(self.shape) - 2
+
+    @property
+    def row_nbytes(self) -> int:
+        return self.nbytes // self.rows
+
+
+def _plane_group(name: str) -> str:
+    if name in BT_PLANES:
+        return "bt"
+    if name in NB_PLANES:
+        return "nb"
+    if name in SEG_META_PLANES:
+        return "seg"
+    if name in DIR_PLANES:
+        return "dir"
+    return "scalar"
+
+
+@dataclasses.dataclass(frozen=True)
+class LogLayout:
+    """The pool's redo-log region (between the superblock and the planes):
+    SMO-rebuilt rows — whose in-place rewrite can never be made atomic by
+    store ordering alone — are staged here (struct-of-arrays sections:
+    row ids, then each plane's rows contiguously), committed via the
+    superblock, and only then applied to their home rows. Sized for the
+    worst case (every row + the routing planes); the file is sparse, so
+    unused capacity costs nothing."""
+    offset: int
+    bt_rows: int               # capacity, in rows
+    nb_rows: int
+    bt_row_nbytes: int         # per-row payload across all BT planes
+    nb_row_nbytes: int
+    routing_nbytes: int        # dir + seg-meta + scalar planes, contiguous
+
+    @property
+    def bt_offset(self) -> int:
+        return self.offset
+
+    @property
+    def nb_offset(self) -> int:
+        return self.bt_offset + self.bt_rows * (8 + self.bt_row_nbytes)
+
+    @property
+    def routing_offset(self) -> int:
+        return self.nb_offset + self.nb_rows * (8 + self.nb_row_nbytes)
+
+    @property
+    def nbytes(self) -> int:
+        return (self.routing_offset - self.offset) + self.routing_nbytes
+
+
+#: Flight-recorder region size (two alternating windows). Small on purpose:
+#: the black box is a bounded ring of RECENT observability state, not a log.
+BLACKBOX_BYTES = 1 << 16
+
+
+@dataclasses.dataclass(frozen=True)
+class BlackboxLayout:
+    """The pool's flight-recorder region (next to the redo log): two
+    alternating fixed-size windows, each holding one self-framed snapshot
+    of the recent observability ring. A flush writes its window into the
+    slot the committed superblock does not reference BEFORE the superblock
+    commit, so the committed superblock always references a window no
+    newer than the data it describes — and the other slot, when its
+    embedded seq reads ``flush_seq + 1``, is the torn flush's own story
+    (see ``obs/blackbox.py`` / ``obs/forensics.py``)."""
+    offset: int
+    nbytes: int
+
+    @property
+    def slot_nbytes(self) -> int:
+        return self.nbytes // 2
+
+    def slot_offset(self, slot: int) -> int:
+        assert slot in (0, 1)
+        return self.offset + slot * self.slot_nbytes
+
+
+@dataclasses.dataclass(frozen=True)
+class ChecksumLayout:
+    """The pool's per-row checksum region (between the flight recorder and
+    the planes): one ``uint32`` content checksum per bucket row of every
+    ``CSUM_PLANES`` plane, stored per-plane (so a row store updates exactly
+    one word) in ``CSUM_PLANES`` order. An all-zero row checksums to 0, so
+    a freshly zero-filled pool verifies clean without initialization."""
+    offset: int
+    entries: tuple             # ((plane_name, file_offset, rows), ...)
+    nbytes: int
+
+    def offset_of(self, name: str) -> int:
+        for n, off, _ in self.entries:
+            if n == name:
+                return off
+        raise KeyError(name)
+
+    def rows_of(self, name: str) -> int:
+        for n, _, rows in self.entries:
+            if n == name:
+                return rows
+        raise KeyError(name)
+
+
+_CSUM_MULT = np.uint32(2654435761)  # Knuth's multiplicative constant
+
+
+def np_row_checksum(rows: np.ndarray) -> np.ndarray:
+    """Vectorized per-row content checksum: ``(n_rows, ...) -> (n_rows,)``
+    uint32. Each u32 word is weighted by a distinct odd multiplier (so
+    word-position swaps and torn-cacheline reverts change the sum), summed
+    mod 2**32, then avalanched. Zero rows hash to 0 by construction (see
+    ChecksumLayout)."""
+    a = np.ascontiguousarray(rows)
+    n = a.shape[0]
+    u8 = a.view(np.uint8).reshape(n, -1)
+    assert u8.shape[1] % 4 == 0, "plane rows are u32-multiple sized"
+    w = u8.view(np.uint32) if u8.flags.c_contiguous else \
+        np.ascontiguousarray(u8).view(np.uint32)
+    mult = (_CSUM_MULT * (np.arange(w.shape[1], dtype=np.uint32)
+                          + np.uint32(1))) | np.uint32(1)
+    h = (w * mult[None, :]).sum(axis=1, dtype=np.uint64).astype(np.uint32)
+    h ^= h >> np.uint32(16)
+    h *= np.uint32(0x45D9F3B)
+    h ^= h >> np.uint32(16)
+    return h
+
+
+def pool_plane_specs(cfg: DashConfig, mode: str = "eh"):
+    """``(specs, log, bbox, csum, total_bytes)``: the plane→file-offset map
+    of a pool holding one table of this config. Shapes come from a state on
+    the ``meta`` device (no allocation), dtypes from ``PLANE_DTYPES`` in the
+    reference's numpy form. File layout: superblock | redo log | flight
+    recorder | per-row checksums | plane regions in ``DashState._fields``
+    order, each 64-aligned."""
+
+    def _align(n):
+        return (n + POOL_ALIGN - 1) // POOL_ALIGN * POOL_ALIGN
+
+    shapes = make_state(cfg, mode, device="meta")
+    raw = {name: PlaneSpec(name=name, offset=0,
+                           shape=tuple(getattr(shapes, name).shape),
+                           dtype=np.dtype(NP_DTYPES[PLANE_DTYPES[name]]),
+                           group=_plane_group(name))
+           for name in DashState._fields}
+    bt_rows = raw["version"].rows
+    nb_rows = raw["ometa"].rows
+    log = LogLayout(
+        offset=SUPERBLOCK_BYTES,
+        bt_rows=bt_rows, nb_rows=nb_rows,
+        bt_row_nbytes=sum(raw[n].row_nbytes for n in BT_PLANES),
+        nb_row_nbytes=sum(raw[n].row_nbytes for n in NB_PLANES),
+        routing_nbytes=sum(raw[n].nbytes for n in log_routing_planes(cfg)))
+    bbox = BlackboxLayout(offset=_align(SUPERBLOCK_BYTES + log.nbytes),
+                          nbytes=BLACKBOX_BYTES)
+    coff = _align(bbox.offset + bbox.nbytes)
+    centries = []
+    off = coff
+    for name in CSUM_PLANES:
+        rows = raw[name].rows
+        centries.append((name, off, rows))
+        off += _align(rows * 4)
+    csum = ChecksumLayout(offset=coff, entries=tuple(centries),
+                          nbytes=off - coff)
+    specs = []
+    for name in DashState._fields:
+        spec = dataclasses.replace(raw[name], offset=off)
+        specs.append(spec)
+        off += _align(spec.nbytes)
+    return tuple(specs), log, bbox, csum, off
+
+
+def pool_nbytes(cfg: DashConfig, mode: str = "eh") -> int:
+    """Plane-region bytes of one pool — the whole-pool rewrite cost a flush
+    would pay without dirty tracking (the sparse redo-log capacity is
+    excluded on purpose)."""
+    specs, _, _, _, _ = pool_plane_specs(cfg, mode)
+    return sum(s.nbytes for s in specs)

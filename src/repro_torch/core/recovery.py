@@ -39,12 +39,17 @@ DEDUPE_CHUNK = 4096
 # instant restart — O(1) regardless of table size
 # ---------------------------------------------------------------------------
 
-def instant_restart(state: DashState):
+def instant_restart(state: DashState, clean_override=None):
     """Read ``clean``; bump ``V`` if the shutdown was dirty. Nothing else:
     one scalar read, no whole-plane op. The restarted state is marked
-    dirty-serving (``clean=False``)."""
+    dirty-serving (``clean=False``).
+
+    ``clean_override`` is the durable path's hook (persist/): the pool
+    superblock's clean marker is written post-fence at every commit and is
+    therefore authoritative over the plane region's ``clean`` scalar, which
+    a torn scalar flush can leave stale."""
     t0 = time.perf_counter()
-    was_clean = bool(state.clean)
+    was_clean = bool(state.clean) if clean_override is None else bool(clean_override)
     state.clean.fill_(False)
     if not was_clean:
         state.gver.copy_(word(u32(state.gver) + 1))
@@ -217,6 +222,80 @@ def lazy_recover_touched(cfg: DashConfig, mode: str, state: DashState,
         affected = np.union1d(np.union1d(d, side[d]), np.nonzero(np.isin(side, d))[0])
         note(dirty, affected[affected >= 0].tolist())
     return _recover_list(cfg, mode, state, dirty), dirty
+
+
+# ---------------------------------------------------------------------------
+# media-fault quarantine: checksum-failing pool rows at reopen
+# ---------------------------------------------------------------------------
+
+def quarantine_rows(cfg: DashConfig, mode: str, state: DashState,
+                    disk_version: np.ndarray, bt_rows: np.ndarray, nb_rows: np.ndarray):
+    """Host-side surgery after ``PmPool.verify_checksums`` flagged rows at
+    reopen. The redo log has already rebuilt everything it could, so a row
+    that still fails has no durable recourse and its bytes are not served:
+
+      * a **BT row** (bucket: records + publish words) is cleared — its
+        meta word is zeroed so no slot is served — and every record it
+        held is *explicitly lost*: the row goes into the returned report.
+      * an **NB row** (overflow metadata) forces a metadata rebuild only:
+        ometa/ofp are derived from stash contents, so zeroing them loses
+        no keys — lazy recovery reconstructs them.
+
+    Affected segments are marked for lazy recovery (``seg_version = 0``
+    never matches ``gver >= 1``) and the quarantined rows' bucket version
+    words (for NB rows: the bucket the overflow metadata belongs to) are
+    set off the POOL's stored word, so the next flush rewrites the row
+    (and its checksum). Works on host copies of the touched planes and
+    writes them back in place.
+
+    Returns ``(state, report)``; report entries are dicts with ``plane``
+    ("bt" / "nb"), ``seg``, ``bucket``, ``row``, and for BT rows the
+    cleared record count (``lost_records``)."""
+    BT, NB = cfg.buckets_total, cfg.num_buckets
+    report = []
+    segs = set()
+    lost_records = 0
+    disk_v = np.asarray(disk_version).reshape(-1)
+    host = {}
+
+    def plane(name):
+        if name not in host:
+            a = getattr(state, name).cpu().numpy().copy()
+            host[name] = a.view(np.uint32) if layout.PLANE_DTYPES[name] == "u32" else a
+        return host[name]
+
+    if len(bt_rows):
+        meta, version = plane("meta"), plane("version")
+        for r in np.asarray(bt_rows).reshape(-1):
+            r = int(r)
+            s, b = r // BT, r % BT
+            n_rec = int((meta[s, b] >> layout.COUNT_SHIFT) & 0xF)
+            lost_records += n_rec
+            meta[s, b] = 0
+            # differs from the pool's word by construction, lock bit clear
+            version[s, b] = np.uint32((int(disk_v[r]) + 2) & ~1)
+            segs.add(s)
+            report.append({"plane": "bt", "seg": s, "bucket": b, "row": r,
+                           "lost_records": n_rec})
+        state.n_items.fill_(max(0, int(state.n_items) - lost_records))
+    if len(nb_rows):
+        ometa, ofp, version = plane("ometa"), plane("ofp"), plane("version")
+        for r in np.asarray(nb_rows).reshape(-1):
+            r = int(r)
+            s, b = r // NB, r % NB
+            ometa[s, b] = 0
+            ofp[s, b] = 0
+            # NB rows ride their bucket's version diff in the writeback:
+            # force the bucket dirty so the next flush rewrites ometa/ofp
+            version[s, b] = np.uint32((int(disk_v[s * BT + b]) + 2) & ~1)
+            segs.add(s)
+            report.append({"plane": "nb", "seg": s, "bucket": b, "row": r})
+    if segs:
+        plane("seg_version")[sorted(segs)] = 0
+    for name, a in host.items():
+        getattr(state, name).copy_(torch.from_numpy(
+            a.view(np.int32) if a.dtype == np.uint32 else a))
+    return state, report
 
 
 def heap_top_floor(cfg: DashConfig, state: DashState) -> DashState:

@@ -128,7 +128,8 @@ class DashTable:
         self.insert_rounds = 0        # stat: insert dispatches (retry rounds included)
         self.free_segments: list = []  # merged-away ids, recycled by splits
         self.dirty = DirtyTracker(cfg.max_segments, self.device)
-        self.writeback = None         # durable pool engine (not ported yet)
+        self.writeback = None         # durable PM-pool engine (persist/)
+        self.lost_report: list = []   # quarantined rows from a verified reopen
         self.obs = None               # observability bundle (obs/), optional
 
     # -- key plumbing --------------------------------------------------------
@@ -310,10 +311,40 @@ class DashTable:
 
     # -- lifecycle -------------------------------------------------------------
 
+    def attach_writeback(self, wb):
+        """Bind a durable PM-pool writeback engine (persist/writeback.py);
+        ``flush()`` (and the serving frontend's publish) then mirror every
+        acknowledged batch into the pool in O(dirty) bytes."""
+        self.writeback = wb
+        if self.obs is not None:
+            wb.attach_obs(self.obs)
+
     def attach_obs(self, obs):
         """Bind an observability bundle (obs/): the table counts lazy
-        recoveries and staged SMOs into its registry."""
+        recoveries and staged SMOs into its registry and propagates the
+        bundle to an attached writeback (flush spans, scrub counters)."""
         self.obs = obs
+        if self.writeback is not None:
+            self.writeback.attach_obs(obs)
+
+    def flush(self) -> int:
+        """Make the live state durable: drain the dirty tracker and write
+        only the dirty planes to the attached pool (ordered flush+fence —
+        the acknowledgment point of the durable contract). Reads
+        ``self.state`` now, whatever tensors an earlier publish handed out.
+        Returns bytes written."""
+        if self.writeback is None:
+            raise RuntimeError("no pool attached (persist.create)")
+        return self.writeback.flush(self.state, self.dirty.drain())
+
+    def close(self):
+        """Durable clean shutdown: set the clean marker and flush, so the
+        next ``persist.reopen`` skips recovery entirely (paper Sec. 4.8's
+        graceful path)."""
+        self.graceful_shutdown()
+        if self.writeback is not None:
+            self.flush()
+            self.writeback.pool.close()
 
     def graceful_shutdown(self):
         """Set the clean-shutdown marker: the next restart skips recovery."""
@@ -322,7 +353,9 @@ class DashTable:
     def restart(self):
         """Instant recovery (Sec. 4.8): O(1) work, constant in data size —
         one scalar read and at most one scalar write. Returns the work
-        record (``clean``, ``seconds``)."""
+        record (``clean``, ``seconds``). (Volatile restart of the live
+        state; the durable equivalent — map the pool, read the superblock,
+        same constant work — is ``persist.reopen``.)"""
         self.state, work = recovery.instant_restart(self.state)
         self.dirty.note_full()   # lazy recovery will rewrite at first touch
         return work
@@ -330,7 +363,10 @@ class DashTable:
     def crash(self, rng: np.random.Generator | None = None, **kw):
         """Leave crash artifacts in the live state (``recovery.simulate_crash``
         keywords). The surgery rewrites planes WITHOUT version bumps, so the
-        next publish must not trust the version diff."""
+        next publish (and durable flush) must not trust the version diff.
+        With a pool attached, ``crash(); flush()`` emulates a crash with its
+        artifacts IN the pool: they land durably and the reopened pool must
+        recover them lazily."""
         self.dirty.note_full()
         self.state = recovery.simulate_crash(self.cfg, self.mode, self.state,
                                              rng or np.random.default_rng(0), **kw)

@@ -10,10 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.layout import (PLANE_DTYPES, DashConfig, DashState,
-                                     make_state)
-
-_NP = {"u8": np.uint8, "u32": np.uint32, "i32": np.int32, "bool": np.bool_}
+from repro_torch.core.layout import (NP_DTYPES, PLANE_DTYPES, DashConfig,
+                                     DashState, make_state)
 
 
 def state_from_numpy(cfg: DashConfig, planes: dict, device) -> DashState:
@@ -23,7 +21,7 @@ def state_from_numpy(cfg: DashConfig, planes: dict, device) -> DashState:
     fields = {}
     for name in DashState._fields:
         kind = PLANE_DTYPES[name]
-        a = np.array(planes[name], dtype=_NP[kind], order="C")
+        a = np.array(planes[name], dtype=NP_DTYPES[kind], order="C")
         if a.shape != tuple(getattr(want, name).shape):
             raise ValueError(f"{name}: shape {a.shape} does not fit the config "
                              f"({tuple(getattr(want, name).shape)})")

@@ -1,6 +1,6 @@
 """Unified observability layer: metrics registry, op-lifecycle tracing,
-SLO monitoring (numpy and plain Python; this package's own copy of
-``repro.obs``, without the durable flight recorder).
+SLO monitoring, and the durable flight recorder with its crash forensics
+(numpy and plain Python; this package's own copy of ``repro.obs``).
 
 ``Observability`` is the per-frontend bundle the serving/persistence stack
 threads through itself: one ``Registry`` (counters/gauges/histograms — the
@@ -22,11 +22,12 @@ import time
 from .registry import Counter, Gauge, Histogram, Registry
 from .slo import SloMonitor, SloRule
 from .trace import Span, Tracer, export_chrome_trace
-from .blackbox import TELEMETRY_SLO_RULES, telemetry_slo_extra
+from .blackbox import FlightRecorder, TELEMETRY_SLO_RULES, \
+    telemetry_slo_extra
 
 __all__ = ["Counter", "Gauge", "Histogram", "Registry", "SloMonitor",
            "SloRule", "Span", "Tracer", "export_chrome_trace",
-           "TELEMETRY_SLO_RULES", "telemetry_slo_extra",
+           "FlightRecorder", "TELEMETRY_SLO_RULES", "telemetry_slo_extra",
            "Observability", "now", "trace_enabled_from_env"]
 
 #: the single op-timestamp clock (satellite: sojourn-timing unification)

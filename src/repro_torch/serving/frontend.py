@@ -54,14 +54,16 @@ Epoch lifecycle per write batch::
          ▼
     publish(v_n+1) — v_n retired into epoch limbo, reclaimed 2 epochs later
 
+  * **Flush-on-publish.** Over a durable table (``persist.create`` /
+    ``reopen``) every publish also flushes the same dirty rows into the
+    pool, so an acknowledged op is durable; a pool that stops accepting
+    flushes turns the frontend DEGRADED, a background scrubber verifies and
+    repairs the pool's rows, and a flight recorder persists the recent
+    observability window with every commit.
+
 ``StopTheWorldFrontend`` drives the identical op stream through the inline
 path (single FIFO, full split storms inside write batches) — the baseline
 the read sojourn p50/p99 is compared against.
-
-The durable pool (flush-on-publish, the DEGRADED health state, the media
-scrubber and the flight recorder) is not ported yet: the frontend refuses a
-table with a writeback attached, and its flush/recorder hooks stay in place
-for it.
 """
 from __future__ import annotations
 
@@ -79,6 +81,7 @@ from repro_torch.core.epoch import SnapshotRegistry
 from repro_torch.core.layout import DROPPED, INSERTED, NOT_FOUND
 from repro_torch.core.table import DashTable, TableFullError
 from repro_torch.kernels import fused
+from repro_torch.persist.writeback import Scrubber, WritebackDegraded
 
 from .engine import buckets_changed
 
@@ -104,19 +107,19 @@ def _read_batching(table: DashTable, max_batch: int,
 
 
 #: frontend health states. Guarantees:
-#:   HEALTHY  — reads serve verified state; every acknowledged write is
-#:              visible to later reads.
-#:   DEGRADED — (durable pools) the pool stopped accepting flushes: serving
-#:              continues, acknowledgments are volatile until recovery.
+#:   HEALTHY  — every acknowledged write is durable (flush-on-publish ran
+#:              through its commit fence, with a pool attached) and reads
+#:              serve verified state.
+#:   DEGRADED — the durable device stopped accepting flushes past the retry
+#:              budget: serving CONTINUES (reads + writes, full speed) but
+#:              acknowledgments are volatile until ``try_recover`` brings
+#:              the pool back (then one force-full flush resynchronizes).
+#:              The pool's on-media image stays the last committed flush.
 #:   READONLY — capacity exhaustion (segment pool / retry budget) with
 #:              ``readonly_on_full``: writes are rejected at admission and
 #:              in-flight writes fail explicitly (DROPPED); reads keep
 #:              serving. Terminal until operator action (resize/restart).
 HEALTHY, DEGRADED, READONLY = "healthy", "degraded", "readonly"
-
-
-class WritebackDegraded(RuntimeError):
-    """Raised by a durable writeback whose flush exhausted its retries."""
 
 
 @dataclasses.dataclass
@@ -226,7 +229,8 @@ class FrontendBase:
         # (obs/). The sojourn histograms are fed by the same _finish_*
         # stamps the latency lists come from — one clock, one code path.
         self.obs = obs if obs is not None else obs_mod.Observability()
-        # durable flight recorder: comes with the durable pool
+        # durable flight recorder (obs/blackbox.py): set by subclasses that
+        # attach a pool — health transitions and write intents stamp it
         self.recorder = None
         scope = self.obs.registry.scope("frontend")
         self._read_hist = scope.histogram("read_sojourn_s")
@@ -274,7 +278,8 @@ class FrontendBase:
     def stats(self) -> dict:
         """One observability surface (tests + the chip run): the registry's
         copy-on-write publish counters, the read-path snapshot/retry split,
-        and the health counters."""
+        the health counters and — when a durable pool is attached — the
+        writeback's flush counters and the scrubber's."""
         out = self.registry.stats()
         out["snapshot_reads"] = self.snapshot_reads
         out["retried_reads"] = self.retried_reads
@@ -284,10 +289,22 @@ class FrontendBase:
         out["unflushed_publishes"] = self.unflushed_publishes
         table = getattr(self, "table", None)
         if table is not None:
-            # rows a verified reopen quarantined (durable pools; none yet)
             report = getattr(table, "lost_report", [])
             out["lost_rows"] = sum(1 for r in report if r.get("plane") == "bt")
             out["lost_records"] = sum(r.get("lost_records", 0) for r in report)
+        wb = getattr(table, "writeback", None)
+        if wb is not None:
+            # superblock counts are the durable cumulative truth (survive
+            # the healing flush and later restarts); prefer them when present
+            out["lost_records"] = max(out.get("lost_records", 0),
+                                      wb.pool.sb.lost_records)
+            out["quarantined_bt"] = len(wb.pool.sb.lost_bt)
+            out["quarantined_nb"] = len(wb.pool.sb.lost_nb)
+            out["quarantine_overflow"] = wb.pool.sb.lost_overflow
+            out.update(wb.stats())
+        scrubber = getattr(self, "scrubber", None)
+        if scrubber is not None:
+            out.update(scrubber.stats())
         return out
 
     def obs_snapshot(self) -> dict:
@@ -355,10 +372,9 @@ class DashFrontend(FrontendBase):
 
     def __init__(self, table: DashTable, *, max_batch: int = 256,
                  queue_depth: int = 4096, readonly_on_full: bool = False,
+                 scrub_interval: int = 0, scrub_rows: int = 512,
                  fused_reads: Optional[bool] = None,
                  obs: Optional[obs_mod.Observability] = None):
-        if table.writeback is not None:
-            raise NotImplementedError("durable pools are not ported yet")
         super().__init__(max_batch=max_batch, queue_depth=queue_depth,
                          obs=obs)
         self.table = table
@@ -372,6 +388,23 @@ class DashFrontend(FrontendBase):
         # into the READONLY health state (reads keep serving, writes fail
         # explicitly)
         self.readonly_on_full = readonly_on_full
+        # background media scrub: every `scrub_interval` ticks verify+repair
+        # one `scrub_rows` window of the attached pool (0 disables)
+        self.scrub_interval = scrub_interval
+        self._scrub_countdown = scrub_interval
+        self.scrubber = None
+        if scrub_interval > 0 and table.writeback is not None:
+            self.scrubber = Scrubber(table.writeback, rows_per_tick=scrub_rows)
+        # durable flight recorder: one per attached pool. Every flush then
+        # persists the recent-observability window alongside the commit
+        # (obs/blackbox.py) and crash forensics can replay the last moments
+        # (obs/forensics.py). Telemetry loss gets its own declarative SLO.
+        if table.writeback is not None:
+            self.recorder = (table.writeback.recorder or
+                             table.writeback.attach_recorder(
+                                 obs_mod.FlightRecorder()))
+            for rule in obs_mod.TELEMETRY_SLO_RULES:
+                self.obs.slo.add_rule(rule)
         self._dirty = True            # live state diverged from the snapshot
         # trace state: the batch/SMO spans stay open across ticks; the last
         # publish/flush span ids are what ack spans causally link back to
@@ -398,8 +431,20 @@ class DashFrontend(FrontendBase):
         drained ONCE: the registry audits it against the version-plane diff
         and honors its force-full escape after crash/restart. Superseded
         versions retire through the epoch manager; their planes go only
-        when no newer version aliases them. With a durable pool attached,
-        the same hint would drive the flush-on-publish."""
+        when no newer version aliases them.
+
+        Flush-on-publish: with a durable pool attached (persist/), the same
+        dirty hint drives the pool writeback right after the publish — an
+        op acknowledged by this frontend is durable, and the flush volume
+        tracks the publish volume (both O(dirty bucket rows)). The flush
+        reads ``self.table.state`` as it is now.
+
+        Graceful degradation: a flush that exhausts its transient-error
+        retry budget marks the frontend DEGRADED instead of failing the
+        publish — serving continues volatile (the pool keeps its last
+        committed image; acknowledgments stop implying durability until
+        ``try_recover`` succeeds). The hint loss is harmless: recovery
+        resynchronizes with a force-full flush."""
         tr = self.obs.tracer
         self._last_publish_sid = None
         self._last_flush_sid = None
@@ -419,6 +464,8 @@ class DashFrontend(FrontendBase):
                 else:
                     before = wb.flushed_bytes
                     try:
+                        # the writeback opens its own "flush" span — nested
+                        # under this publish span via the tracer stack
                         wb.flush(self.table.state, hint)
                         self._last_flush_sid = wb.last_flush_sid
                     except WritebackDegraded:
@@ -429,7 +476,9 @@ class DashFrontend(FrontendBase):
         self._dirty = False
 
     def try_recover(self) -> bool:
-        """Attempt DEGRADED -> HEALTHY. READONLY is terminal — capacity,
+        """Attempt DEGRADED -> HEALTHY: probe the pool's fence and, on
+        success, resynchronize it with one force-full flush
+        (``WritebackEngine.try_recover``). READONLY is terminal — capacity,
         not media. Returns True when the frontend is healthy afterwards."""
         if self.health == READONLY:
             return False
@@ -532,8 +581,11 @@ class DashFrontend(FrontendBase):
     # -- durable intent/ack stamps (flight recorder protocol) --------------
 
     def _record_intent(self, kind, keys):
-        """Stamp the write batch into the flight recorder before the
-        flush-on-publish (no-op without a durable pool)."""
+        """Stamp the write batch into the flight recorder BEFORE the
+        flush-on-publish: these ops are acked by the first commit with
+        ``flush_seq >= await_seq``. If that flush tears, its half-written
+        window is the only durable evidence the ops were in flight — the
+        forensics contract. No-op without a durable pool."""
         rec = self.recorder
         if rec is None:
             return None
@@ -546,6 +598,8 @@ class DashFrontend(FrontendBase):
         if rec is None or aw is None:
             return
         seq = self.table.writeback.pool.sb.flush_seq
+        # durable=False while DEGRADED: the ack is volatile-only and the
+        # recorder says so (acknowledgments stop implying durability)
         rec.record_ack(seq, kind, n, durable=seq >= aw)
 
     def _emit_write_ack(self, batch_span, kind: str, n: int):
@@ -673,8 +727,13 @@ class DashFrontend(FrontendBase):
 
     def step(self) -> bool:
         did = super().step()
-        # the SLO monitor ticks alongside: one counter bump per tick, a
-        # windowed evaluation every eval_interval ticks
+        if self.scrubber is not None:
+            self._scrub_countdown -= 1
+            if self._scrub_countdown <= 0:
+                self._scrub_countdown = self.scrub_interval
+                self.scrubber.tick(self.table.state)
+        # the SLO monitor ticks alongside the scrubber: one counter bump
+        # per tick, a windowed evaluation every eval_interval ticks
         self.obs.slo.tick(self._slo_extra)
         return did
 

@@ -2,6 +2,7 @@
 against the JAX package (``repro``): carry states and keys across as numpy
 arrays and compare planes byte for byte."""
 import dataclasses
+import itertools
 
 import numpy as np
 import torch
@@ -44,3 +45,28 @@ def diverged(ref_state, port_state) -> list:
 def assert_same_state(ref_state, port_state, where=""):
     bad = diverged(ref_state, port_state)
     assert not bad, (where, bad)
+
+
+def assert_same_pool(ref_path, port_path, where=""):
+    """Two pool files hold the same bytes."""
+    with open(ref_path, "rb") as f, open(port_path, "rb") as g:
+        a, b = f.read(), g.read()
+    if a != b:
+        n = min(len(a), len(b))
+        diff = np.flatnonzero(np.frombuffer(a[:n], np.uint8) != np.frombuffer(b[:n], np.uint8))
+        raise AssertionError(f"{where}: pools differ ({len(a)} / {len(b)} B) at "
+                             f"{diff.size} bytes, first {diff[:8]}")
+
+
+def assert_same_counters(ref_wb, port_wb, where=""):
+    """Two writeback engines' ``stats()`` agree on everything but seconds."""
+    a, b = ref_wb.stats(), port_wb.stats()
+    assert set(a) == set(b), where
+    bad = {k: (a[k], b[k]) for k in a if k != "flush_seconds" and a[k] != b[k]}
+    assert not bad, (where, bad)
+
+
+def counter_clock():
+    """A deterministic clock for flight recorders: 0.0, 1.0, 2.0, ..."""
+    c = itertools.count()
+    return lambda: float(next(c))

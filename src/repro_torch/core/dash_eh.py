@@ -90,32 +90,53 @@ def split_phase2_scan(cfg: DashConfig, state: DashState, old_seg: int,
     as the fallback for packings the vectorized rebuild does not fit.
     Records are re-inserted in slot order (:func:`reinsert`). Returns
     (state, all_refit)."""
+    return split_phase2_scan_many(cfg, state, [old_seg], [new_seg], check_unique)
+
+
+def split_phase2_scan_many(cfg: DashConfig, state: DashState, old_segs, new_segs,
+                           check_unique: bool = False):
+    """:func:`split_phase2_scan` for K splits of distinct segments at once,
+    with the result of running them one after another: each split's records
+    go only to its own two segments (one :func:`reinsert` steps them all,
+    one record per segment per step), and its directory range and
+    bookkeeping touch nothing of another split's. Returns (state,
+    all_refit)."""
+    dev = state.dir.device
+    old = torch.as_tensor(np.asarray(old_segs, np.int64), device=dev)
+    new = torch.as_tensor(np.asarray(new_segs, np.int64), device=dev)
     n0 = state.n_items.clone()             # splits move records: net zero
-    ld_new = int(state.local_depth[old_seg])
-    hi, lo, val, valid = engine.segment_records(cfg, state, old_seg)
+    ld_new = state.local_depth[old].long()
+    hi, lo, val, valid = (x.reshape(old.numel(), -1) for x in
+                          engine.segment_records(cfg, state, old))
     hi, lo, val = hi.clone(), lo.clone(), val.clone()
     h1, h2 = engine.record_hashes(cfg, state, hi, lo)
-    move = ((u32(h1) >> (32 - ld_new)) & 1) == 1
+    move = ((u32(h1) >> (32 - ld_new[:, None])) & 1) == 1
 
-    _clear_segment(cfg, state, old_seg)
-    fits = reinsert(cfg, state, torch.where(move, new_seg, old_seg),
-                    layout.bucket_index(cfg, h1), h2, hi, lo, val, valid,
-                    check_unique)
+    _clear_segment(cfg, state, old)
+    fits = reinsert(cfg, state, torch.where(move, new[:, None], old[:, None]).reshape(-1),
+                    *(x.reshape(-1) for x in (layout.bucket_index(cfg, h1), h2, hi,
+                                              lo, val, valid)), check_unique)
 
-    # directory publish: among entries owned by old_seg, the half whose
-    # (ld+1)-th MSB is 1 now points at new_seg (contiguous under MSB indexing)
-    idx = torch.arange(cfg.dir_size, device=hi.device)
-    take = (state.dir == old_seg) & (((idx >> (cfg.dir_depth_max - ld_new)) & 1) == 1)
-    state.dir[take] = new_seg
+    # directory publish: among entries owned by an old segment, the half
+    # whose (ld+1)-th MSB is 1 now points at its new segment (contiguous
+    # under MSB indexing)
+    new_of = torch.full((cfg.max_segments,), -1, dtype=torch.int64, device=dev)
+    ld_of = torch.zeros(cfg.max_segments, dtype=torch.int64, device=dev)
+    new_of[old], ld_of[old] = new, ld_new
+    owner = state.dir.long()
+    idx = torch.arange(cfg.dir_size, device=dev)
+    take = (new_of[owner] >= 0) & (((idx >> (cfg.dir_depth_max - ld_of[owner])) & 1) == 1)
+    state.dir[take] = new_of[owner][take].to(state.dir.dtype)
 
-    gd = int(state.global_depth)
-    state.global_depth.fill_(max(gd, ld_new))
-    state.n_doublings.add_(int(ld_new > gd))
-    state.n_splits.add_(1)
-    for s in (old_seg, new_seg):
-        state.seg_state[s] = SEG_NORMAL
-        state.seg_version[s] = state.gver
-        state.version[s] = word(u32(state.version[s]) + 2)
+    for ld in ld_new.tolist():             # in split order, as one after another
+        gd = int(state.global_depth)
+        state.global_depth.fill_(max(gd, ld))
+        state.n_doublings.add_(int(ld > gd))
+    state.n_splits.add_(old.numel())
+    both = torch.cat([old, new])
+    state.seg_state[both] = SEG_NORMAL
+    state.seg_version[both] = state.gver
+    state.version[both] = word(u32(state.version[both]) + 2)
     state.n_items.copy_(n0)     # incremental accounting: a split never changes the count
     return state, fits
 

@@ -511,6 +511,33 @@ def search_batch(cfg: DashConfig, mode: str, state: DashState,
     raise ValueError(f"unknown batching {batching!r}")
 
 
+def search_batch_pessimistic(cfg: DashConfig, mode: str, state: DashState,
+                             keys_hi, keys_lo, words=None):
+    """Fig. 13 baseline: read-locking searches, in place. Every probe
+    'acquires' and 'releases' a read lock — two version-word writes per
+    touched bucket each — which also serializes the batch: one key per
+    step, in batch order, as the reference's scan. (The bumps commute, so
+    one scatter-add would end in the same planes; the serial batch is what
+    the figure measures.) Returns (state, found, values)."""
+    keys_hi, keys_lo, words, h1, h2 = _query_parts(cfg, keys_hi, keys_lo, words)
+
+    def step(i):
+        seg, b = locate(cfg, mode, state, h1[i])
+        pb = _wrap(cfg, b + 1)
+        bk.bump_version(state, seg, b)        # acquire
+        bk.bump_version(state, seg, pb)
+        found, val = probe_in_segment(cfg, state, seg, b, h2[i], keys_hi[i],
+                                      keys_lo[i], words[i])
+        bk.bump_version(state, seg, b)        # release
+        bk.bump_version(state, seg, pb)
+        return found, val
+
+    res = _per_key(keys_hi.shape[0], step)
+    if res is None:
+        return state, _zeros(keys_hi, torch.bool), _zeros(keys_hi, torch.int32)
+    return state, res[0], res[1]
+
+
 def _scan_each(cfg: DashConfig, mode: str, state: DashState, keys_hi, keys_lo,
                words, op):
     """Run ``op(seg, b, h2, hi, lo, words, i)`` for one key per step, in
@@ -574,11 +601,12 @@ def update_batch(cfg: DashConfig, mode: str, state: DashState,
 # segment record extraction (split rehash + recovery)
 # ---------------------------------------------------------------------------
 
-def segment_records(cfg: DashConfig, state: DashState, seg: int):
-    """All records of a segment: (hi, lo, val, valid), each (BT*SLOTS,)."""
+def segment_records(cfg: DashConfig, state: DashState, seg):
+    """All records of a segment: (hi, lo, val, valid), each (BT*SLOTS,); of
+    K segments (a tensor of ids), each (K*BT*SLOTS,) in id order."""
     alloc = layout.meta_alloc(state.meta[seg])
     slot_ids = torch.arange(cfg.num_slots, device=alloc.device)
-    valid = (((alloc[:, None] >> slot_ids) & 1) == 1).reshape(-1)
+    valid = (((alloc[..., None] >> slot_ids) & 1) == 1).reshape(-1)
     return (state.key_hi[seg].reshape(-1), state.key_lo[seg].reshape(-1),
             state.val[seg].reshape(-1), valid)
 

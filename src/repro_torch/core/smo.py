@@ -365,9 +365,10 @@ class BulkSplitTask:
             return state, False
         if self.stage != "commit":
             raise RuntimeError(f"task already {self.stage}")
-        for k in np.nonzero(~self._ok.cpu().numpy())[0]:
-            state, fit = dash_eh.split_phase2_scan(
-                self.cfg, state, int(self.old_np[k]), int(self.new_np[k]),
+        fail = np.nonzero(~self._ok.cpu().numpy())[0]
+        if fail.size:
+            state, fit = dash_eh.split_phase2_scan_many(
+                self.cfg, state, self.old_np[fail], self.new_np[fail],
                 self.check_unique)
             if not fit:
                 raise AssertionError("split rehash failed to refit records")

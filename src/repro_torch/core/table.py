@@ -463,23 +463,34 @@ class DashEH(DashTable):
             self._pump_smo(task)
 
     def _on_pressure_scalar(self, segs):
-        """Reference path: one scan-rehash SMO per segment, recycled ids
-        first. (The reference counts a recycled id against the watermark
-        too, and so can report the pool exhausted early.)"""
+        """Reference path: scan-rehash SMOs, recycled ids first. A round's
+        splits rehash together (``split_phase2_scan_many``), which gives the
+        result of running them one after another; the splits that got an
+        id land before the pool runs out. (The reference counts a recycled
+        id against the watermark too, and so can report the pool exhausted
+        early.)"""
         wm = self.n_segments
+        olds, news = [], []
         for seg in segs:
             if self.free_segments:
                 new_id = self.free_segments.pop()
             elif wm < self.cfg.max_segments:
                 new_id, wm = wm, wm + 1
             else:
-                raise TableFullError("segment pool exhausted")
-            self.dirty.note_segments([seg, new_id])
+                break
+            olds.append(seg)
+            news.append(new_id)
+        if olds:
+            self.dirty.note_segments(olds + news)
             self.dirty.note_dir()
-            self.state, ok = dash_eh.split_segment(self.cfg, self.state, seg,
-                                                   new_id, impl="scan")
+            for old, new in zip(olds, news):
+                dash_eh.split_phase1(self.cfg, self.state, old, new)
+            self.state, ok = dash_eh.split_phase2_scan_many(self.cfg, self.state,
+                                                           olds, news)
             if not ok:
                 raise AssertionError("split rehash failed to refit records")
+        if len(olds) < len(segs):
+            raise TableFullError("segment pool exhausted")
 
     @property
     def global_depth(self) -> int:

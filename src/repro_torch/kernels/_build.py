@@ -21,7 +21,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("hashmix.cu", "probe.cu", "fused.cu")
+SOURCES = ("hashmix.cu", "probe.cu", "fused.cu", "level.cu")
 HEADERS = ("dash_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -33,6 +33,7 @@ SIGNATURES = {
     "dash_bulk_hash": (_P, _P, _P, _P, _P, _I64, _P),
     "dash_fingerprint_probe": (_P, _P, _I64, _I, _P, _P, _P, _P, _I64, _P, _P),
     "dash_fused_probe": (_P, _P, _P, _P, _P, _P, _P, _I64, _P, _P),
+    "dash_level_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _P),
     "dash_noop_launch": (_P,),
     "dash_latency_chase": (_P, _I64, _P, _P),
 }

@@ -29,7 +29,10 @@ whole; the pointer-mode heap is device-sliced at its tail. ``staged_bytes``
 / ``last_staged_bytes`` count every host-materialized byte, the dirty-row
 gathers at the reference's pow2-padded size (its jitted gather pads the id
 vector so its trace count stays bounded; this one gathers only the real
-rows, and counts the same bytes so the counters agree).
+rows, and counts the same bytes so the counters agree). The bytes that
+really crossed to the host are ``transferred_bytes`` /
+``last_transferred_bytes``: attributes outside ``stats()``, whose keys stay
+the reference's.
 ``stage_seconds`` / ``last_stage_seconds`` time the device-to-host staging
 apart from the pool I/O and fences.
 
@@ -205,6 +208,8 @@ class WritebackEngine:
         self.last_flush_bytes = 0
         self.staged_bytes = 0         # host bytes materialized from device
         self.last_staged_bytes = 0    # ... by the last flush (O(dirty) gate)
+        self.transferred_bytes = 0    # bytes that really crossed to the host
+        self.last_transferred_bytes = 0
         self.last_flush_rows = 0      # per-plane row writes of the last flush
         self.last_dirty_rows = 0      # distinct dirty bucket rows last flush
         self.last_heap_tail_rows = 0  # pointer-mode heap rows of last flush
@@ -268,9 +273,13 @@ class WritebackEngine:
         self.flushed_rows += rows
         self.last_flush_rows += rows
 
-    def _count_staged(self, nbytes: int, seconds: float):
+    def _count_staged(self, nbytes: int, seconds: float, moved: int):
+        """Count ``nbytes`` staged (the reference's measure), ``moved``
+        bytes copied to the host and the seconds it took."""
         self.staged_bytes += nbytes
         self.last_staged_bytes += nbytes
+        self.transferred_bytes += moved
+        self.last_transferred_bytes += moved
         self.stage_seconds += seconds
         self.last_stage_seconds += seconds
 
@@ -287,7 +296,7 @@ class WritebackEngine:
         gate audits."""
         t0 = time.perf_counter()
         out = self._host(name, t.cpu())
-        self._count_staged(out.nbytes, time.perf_counter() - t0)
+        self._count_staged(out.nbytes, time.perf_counter() - t0, out.nbytes)
         return out
 
     def _stage_gathered(self, state: DashState, names, ids: np.ndarray
@@ -306,7 +315,8 @@ class WritebackEngine:
             planes[0].device)
         out = _gather_rows(planes, idt)
         nbytes = sum(pad * self.pool.spec(n).row_nbytes for n in names)
-        self._count_staged(nbytes, time.perf_counter() - t0)
+        self._count_staged(nbytes, time.perf_counter() - t0,
+                           sum(g.numel() * g.element_size() for g in out))
         return {n: _GatheredRows(ids, self._host(n, g)) for n, g in zip(names, out)}
 
     def _write_rows(self, name: str, ids: np.ndarray, live: np.ndarray):
@@ -438,6 +448,7 @@ class WritebackEngine:
         self.last_flush_rows = 0
         self.last_heap_tail_rows = 0
         self.last_staged_bytes = 0
+        self.last_transferred_bytes = 0
         self.last_stage_seconds = 0.0
         cfg = self.cfg
         NB, BT, SL = cfg.num_buckets, cfg.buckets_total, cfg.num_slots

@@ -1,13 +1,15 @@
-"""The PyTorch port stands alone: no module of ``repro_torch`` and not
-``chip_smoke.py`` imports JAX or anything of the JAX package ``repro`` —
-not even its framework-free modules (the port keeps its own copies)."""
+"""The PyTorch port stands alone: no module of ``repro_torch``, not
+``chip_smoke.py`` and not the example twins import JAX or anything of the
+JAX package ``repro`` — not even its framework-free modules (the port keeps
+its own copies)."""
 import ast
 from pathlib import Path
 
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+         + sorted((ROOT / "examples").glob("*_torch.py")))
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 
@@ -25,7 +27,9 @@ def _imported_roots(tree):
 
 def test_port_files_found():
     names = {p.name for p in FILES}
-    assert {"engine.py", "fused.py", "probe.py", "hashmix.py", "chip_smoke.py"} <= names
+    assert {"engine.py", "fused.py", "probe.py", "hashmix.py", "level.py", "baselines.py",
+            "prefix_cache.py", "dedup.py", "pipeline.py", "chip_smoke.py",
+            "quickstart_torch.py", "dedup_pipeline_torch.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

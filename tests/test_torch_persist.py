@@ -308,3 +308,17 @@ def test_create_and_reopen_default_to_the_card(tmp_path, monkeypatch):
     assert info4["clean"] and t4.mode == "lh"
     t5, info5 = tp.durable_open(p, device="cpu")
     assert info5["clean"] and t5.mode == "eh"
+
+
+def test_transferred_bytes_count_the_host_copy(tmp_path):
+    """``transferred_bytes`` counts what really crossed to the host: every
+    plane's bytes on a full flush, the real dirty rows (at most the
+    reference's pow2-padded ``staged_bytes``) on an incremental one."""
+    port = tp.create(str(tmp_path / "p.pool"), port_cfg(SMALL), device="cpu")
+    wb = port.writeback
+    assert wb.last_transferred_bytes == wb.pool.plane_bytes <= wb.last_staged_bytes
+    port.insert(unique_keys(np.random.default_rng(5), 300), _vals(300))
+    port.flush()
+    assert 0 < wb.last_transferred_bytes < wb.last_staged_bytes
+    assert wb.transferred_bytes <= wb.staged_bytes
+    assert "transferred_bytes" not in wb.stats()

@@ -10,7 +10,10 @@ Phases, each printed on its own line and each able to fail the run:
   2. ``bulk_hash`` against its plain PyTorch version on 1M keys plus a
      ragged tail and the edge words;
   3. small op streams through the port on the card and on the CPU, each
-     pair ending byte-identical in answers and planes: an EH stream; an LH
+     pair ending byte-identical in answers and planes (the CPU halves run
+     in a child process started with the run, two threads, while the card
+     runs its halves; a child that fails or hangs fails the run): an EH
+     stream; an LH
      stream (stride splits, both read plans, deletes, updates); crash
      streams (EH with an interrupted split, and LH: crash, restart, lazy
      recovery on reads, inserts of live keys answer EXISTS); a shrink
@@ -71,7 +74,11 @@ Phases, each printed on its own line and each able to fail the run:
      flush-on-publish, the scrubber every tick and the flight recorder;
      the table dropped without ``close()``, reopened without and with
      checksum verification, the first 1M-key read recovering lazily and
-     every acknowledged key checked; one flush carrying an SMO torn at its
+     every acknowledged key checked (the kill is a child process on the
+     card: it reopens the closed pool, acknowledges one more batch and
+     dies by ``os._exit`` inside the next flush's ``pool.commit``;
+     forensics must name that flush's keys as in flight); one flush
+     carrying an SMO torn at its
      commit fence by a ``FaultPlan``, forensics on the dead pool naming
      exactly that flush's keys as in flight, and every acknowledged key
      found after a last reopen. Checkpoint seconds, flushes, flushed and
@@ -112,11 +119,31 @@ Phases, each printed on its own line and each able to fail the run:
      ``examples/dedup_pipeline.py``. Phase 3 also streams level hashing
      (through 6 rehashes), CCEH, Bucketized, the pessimistic search (EH
      and LH), the prefix cache and the dedup filter on the card and on the
-     CPU, byte-identical.
+     CPU, byte-identical;
+ 11. the sharded DHT (``repro_torch.distributed``), one process per rank:
+     a 4-rank stream (inserts through splits, searches, ShardFrontend in
+     both verify modes over durable shard pools, the pools flushed, the
+     table dropped, every shard reopened lazily and searched) on 4 gloo
+     ranks on the card and 4 on the CPU, answers, every rank's planes
+     after every stage and every shard pool file byte-identical; then on
+     the card's 4 ranks (a gloo group sharing the one card: NCCL refuses
+     two ranks on one device, and gloo stages each exchange through the
+     host — not a multi-GPU scaling result) each shard in the main path's
+     geometry, 1M unique uniform keys loaded in global batches growing to
+     65,536, 1M hits and 1M misses searched in 65,536-key batches
+     (``fingerprint_probe`` per shard), 200 read ticks of 1024 keys
+     (``fused_probe`` per shard) and a ShardFrontend storm of 16,384
+     inserts with a read each, every answer checked, insert and search
+     rates, rounds and split calls per batch, the exchange's share of the
+     wall time, read sojourn p50/p99, the busy share of a traced read
+     batch; the kernels held to their plain versions on shard-local
+     batches; the same path on a one-rank NCCL group at 65,536 keys. Past
+     1000 s of the run the DHT's key count is cut first (logged).
 
-Each kernel's ``launches`` in the JSON line is the sum over the five
+Each kernel's ``launches`` in the JSON line is the sum over the seven
 paths driven with counters (the EH main path, the frontend, the durable
-path, the LH path and the baselines' load). The durable line also prints
+path, the LH path, the baselines' load, the 4-rank DHT summed over its
+ranks and the one-rank NCCL DHT). The durable line also prints
 the bytes that really crossed to the host a flush. The last three
 lines are the card line, one JSON object describing every kernel, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -681,24 +708,25 @@ def _chaos_stream(device, seed: int, path: str):
     return None, [np.array(vals)]
 
 
-def phase_cuda_vs_cpu():
-    from repro_torch import interop
+def _pool(name, dev) -> str:
+    """Pool file of a card-vs-CPU stream: the card's run and the CPU's
+    write apart."""
+    return str(POOL_DIR / f"{name}-{'cpu' if dev == 'cpu' else 'card'}.pool")
+
+
+def _stream_table():
+    """(streams, durable): every card-vs-CPU stream as name -> run(dev) ->
+    (table, answers), and the names of those that write a pool file."""
     from repro_torch.core import DashConfig
     from repro_torch.core.baselines import bucketized_config, cceh_config
     eh = DashConfig(max_segments=64, dir_depth_max=10, init_depth=3)
     lh = DashConfig(max_segments=256, num_stash=4)
-
-    def pool(name, dev):   # the card's run and the CPU's run write apart
-        return str(POOL_DIR / f"{name}-{'cpu' if dev == 'cpu' else 'card'}.pool")
-
-    durable = {   # name: run(dev) -> (table, answers), pools at pool(name, dev)
-        "durable eh": lambda dev: _durable_stream(eh, "eh", dev, 12, pool("durable eh", dev)),
-        "durable lh": lambda dev: _durable_stream(lh, "lh", dev, 13, pool("durable lh", dev)),
-        "fault plan": lambda dev: _fault_stream(eh, dev, 14, pool("fault plan", dev)),
-        "chaos": lambda dev: _chaos_stream(dev, 1, pool("chaos", dev)),
+    durable = {   # name: run(dev) -> (table, answers), pools at _pool(name, dev)
+        "durable eh": lambda dev: _durable_stream(eh, "eh", dev, 12, _pool("durable eh", dev)),
+        "durable lh": lambda dev: _durable_stream(lh, "lh", dev, 13, _pool("durable lh", dev)),
+        "fault plan": lambda dev: _fault_stream(eh, dev, 14, _pool("fault plan", dev)),
+        "chaos": lambda dev: _chaos_stream(dev, 1, _pool("chaos", dev)),
     }
-    shutil.rmtree(POOL_DIR, ignore_errors=True)
-    POOL_DIR.mkdir(parents=True)
     streams = {
         "eh": lambda dev: _op_stream(eh, dev, 5),
         "lh": lambda dev: _op_stream(lh, dev, 6, "DashLH"),
@@ -719,23 +747,162 @@ def phase_cuda_vs_cpu():
         "prefix cache": lambda dev: _prefix_stream(dev, 19),
         "dedup": lambda dev: _dedup_stream(dev, 20),
     }
+    return streams, set(durable)
+
+
+#: the CPU halves' child caps its threads, so the card's host work keeps cores
+CPU_THREADS = 2
+#: the CPU halves took ~47 s beside nothing; each child gets this long
+HALVES_TIMEOUT = 600.0
+HALVES = Path(__file__).resolve().parent / "build" / "halves"
+#: card streams run by two more processes on the card, beside this one's
+#: (their facts come from their answers and final planes, none from a table
+#: object); the three take about the same time
+CARD_CHILD_GROUPS = (("durable eh", "durable lh", "fault plan", "chaos", "level",
+                      "pessimistic", "prefix cache", "dedup"),
+                     ("pointer", "eh", "lh"))
+
+
+def _child_setup(threads: int) -> None:
+    """A spawned child of this script: the checkout's ``src`` on its path,
+    its threads capped."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    torch.set_num_threads(threads)
+
+
+def _run_halves(names, device: str, path: str) -> None:
+    """One side of the card-vs-CPU streams in a child process: every named
+    stream's answers, final planes and seconds, pickled to ``path``; pool
+    files land under ``_pool(name, device)``."""
+    import pickle
+    global DEVICE
+    DEVICE = device if device.startswith("cpu") else "cuda"
+    _child_setup(CPU_THREADS if device == "cpu" else 4)
+    from repro_torch import interop
+    streams, _ = _stream_table()
+    out = {}
+    for name in names:
+        t0 = time.perf_counter()
+        t, answers = streams[name](device)
+        out[name] = (answers, None if t is None else interop.state_to_numpy(t.state),
+                     time.perf_counter() - t0)
+    with open(path, "wb") as f:
+        pickle.dump(out, f)
+
+
+def _start_halves(names, device: str, tag: str):
+    """Run ``_run_halves`` for ``names`` in a spawned child."""
+    return _spawn_child(_run_halves, (tuple(names), device, str(HALVES / f"{tag}.pkl")),
+                        f"{tag}-halves")
+
+
+def start_cpu_halves():
+    """Start the CPU halves' child at the beginning of the run (spawned:
+    no CUDA state is shared)."""
+    for d in (POOL_DIR, HALVES):
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
+    streams, _ = _stream_table()
+    return _start_halves(list(streams), "cpu", "cpu")
+
+
+def _join(child, timeout: float, what: str) -> None:
+    """Wait for a child; one that fails or outlives ``timeout`` fails the
+    phase."""
+    child.join(timeout)
+    if child.is_alive():
+        child.kill()
+        child.join()
+        raise PhaseError(f"{what}: the child outlived {timeout:.0f}s")
+    check(child.exitcode == 0, f"{what}: the child exited with {child.exitcode}")
+
+
+def _spawn_child(target, args, name: str):
+    """Start ``target(*args)`` in a spawned child process of this script."""
+    import multiprocessing
+    child = multiprocessing.get_context("spawn").Process(target=target, args=args,
+                                                          name=name)
+    child.start()
+    return child
+
+
+def _killed_writer(path: str, acked, in_flight, device: str) -> None:
+    """A writer process on the card killed inside a flush: reopen the pool,
+    insert and flush ``acked`` (acknowledged), insert ``in_flight``, stamp
+    its intent in the flight recorder and die inside that flush's
+    ``pool.commit`` — after the data, log and recorder window, before the
+    superblock advanced. Exits 0 only from inside the commit."""
+    _child_setup(4)
+    from repro_torch import persist
+    from repro_torch.obs import FlightRecorder
+    t, _ = persist.reopen(path, verify=False, device=device)
+    rec = t.writeback.attach_recorder(FlightRecorder())
+    for batch in (acked, in_flight):
+        if not (t.insert(batch, _expected_values(batch)) == 0).all():
+            os._exit(3)
+        rec.record_ops("insert", batch, await_seq=t.writeback.pool.sb.flush_seq + 1)
+        if batch is in_flight:
+            t.writeback.pool.commit = lambda *a, **kw: os._exit(0)
+        t.flush()
+    os._exit(4)
+
+
+class _Shadow:
+    """What the checks read of a table another process ran: its segment
+    count and planes."""
+
+    def __init__(self, planes):
+        self.state = type("Planes", (), planes)
+        self.n_segments = int(planes["watermark"])
+
+
+def phase_cuda_vs_cpu(cpu_child):
+    """Every stream on the card — the ``CARD_CHILD_GROUPS`` in two more
+    processes on the card started here, the rest in this one — while
+    ``cpu_child`` (``start_cpu_halves``) runs all of them on the CPU; then
+    answers, planes and pool bytes are compared."""
+    import pickle
+    from repro_torch import interop
+    streams, durable = _stream_table()
     t0 = time.perf_counter()
-    facts = {}
+    children = [_start_halves(group, DEVICE, f"card{i}")
+                for i, group in enumerate(CARD_CHILD_GROUPS)]
+    in_children = {name for group in CARD_CHILD_GROUPS for name in group}
+    facts, seconds = {}, {}
     for name, run in streams.items():
-        t_gpu, out_gpu = run(DEVICE)
-        t_cpu, out_cpu = run("cpu")
+        if name not in in_children:
+            t1 = time.perf_counter()
+            facts[name] = run(DEVICE)
+            seconds[name] = time.perf_counter() - t1
+    card_s = time.perf_counter() - t0
+    for i, child in enumerate(children):
+        _join(child, HALVES_TIMEOUT, f"card process {i}")
+    _join(cpu_child, HALVES_TIMEOUT, "the CPU halves")
+    wait_s = time.perf_counter() - t0 - card_s
+    child_card = {}
+    for i in range(len(children)):
+        with open(HALVES / f"card{i}.pkl", "rb") as f:
+            child_card.update(pickle.load(f))
+    with open(HALVES / "cpu.pkl", "rb") as f:
+        cpu = pickle.load(f)
+    for name, (answers, planes, secs) in child_card.items():
+        facts[name] = (None if planes is None else _Shadow(planes), answers)
+        seconds[name] = secs
+    for name, (t_gpu, out_gpu) in facts.items():
+        out_cpu, planes_cpu, _ = cpu[name]
         check(len(out_gpu) == len(out_cpu), f"{name}: answer counts differ")
         for i, (a, b) in enumerate(zip(out_gpu, out_cpu)):
             check(np.array_equal(a, b), f"{name}: answer {i} differs between cuda and cpu")
-        if t_gpu is not None:
-            a, b = interop.state_to_numpy(t_gpu.state), interop.state_to_numpy(t_cpu.state)
-            bad = [k for k in a if a[k].tobytes() != b[k].tobytes()]
+        a = (child_card[name][1] if name in child_card
+             else None if t_gpu is None else interop.state_to_numpy(t_gpu.state))
+        if a is not None:
+            bad = [k for k in a if a[k].tobytes() != planes_cpu[k].tobytes()]
             check(not bad, f"{name}: cuda and cpu states differ in {bad}")
         if name in durable and name != "chaos":
-            with open(pool(name, DEVICE), "rb") as f, open(pool(name, "cpu"), "rb") as g:
+            with open(_pool(name, DEVICE), "rb") as f, open(_pool(name, "cpu"), "rb") as g:
                 check(f.read() == g.read(), f"{name}: cuda and cpu pool files differ")
-        facts[name] = (t_gpu, out_gpu)
     shutil.rmtree(POOL_DIR, ignore_errors=True)
+    slowest = sorted(seconds.items(), key=lambda kv: -kv[1])[:6]
     t_eh, t_lh = facts["eh"][0], facts["lh"][0]
     check(t_eh.n_segments > 8, "op stream made too few splits")
     check(t_lh.n_segments > 8, "LH stream made too few stride splits")
@@ -801,7 +968,10 @@ def phase_cuda_vs_cpu():
         f"{', '.join(fe_counts)}; pointer stream {t_ptr.n_segments} segments, heap_top "
         f"{int(t_ptr.state.heap_top)}; durable streams with byte-identical pool files "
         f"after every flush ({'; '.join(durable_facts)}); baselines and apps "
-        f"({baseline_facts}) ({time.perf_counter() - t0:.1f}s)")
+        f"({baseline_facts}) ({time.perf_counter() - t0:.1f}s: this process's card "
+        f"halves {card_s:.1f}s, then {wait_s:.1f}s waiting on the other card processes and "
+        f"the CPU child; slowest streams on the card "
+        + ", ".join(f"{k} {v:.1f}s" for k, v in slowest) + ")")
 
 
 def phase_edges():
@@ -1713,9 +1883,25 @@ def phase_durable(carry, report, card: str, n_fresh: int = DURABLE_FRESH):
             f"{busy * 1e3:.1f} ms (busy share {busy / wall:.3f}); top: "
             + "; ".join(f"{k} {v:.2f} ms" for k, v in top))
 
-    # ---- the kill: the table is dropped, never closed ----
+    # ---- the kill: the storm's table is closed and a child process on the
+    # card reopens the pool, acknowledges one more batch and dies inside
+    # the next flush's commit (os._exit: no destructor, no close) ----
+    t.close()
     del f, t, wb, drv, ops
     gc.collect()
+    acked, in_flight = distinct_keys(6 << 40, 256), distinct_keys(7 << 40, 256)
+    t0 = time.perf_counter()
+    child = _spawn_child(_killed_writer, (path, acked, in_flight, DEVICE), "killed-writer")
+    _join(child, 300.0, "the writer killed inside a flush")
+    kill_s = time.perf_counter() - t0
+    rep = forensics.analyze_pool(path)
+    in_flight_named = {int(k) for op in rep.get("in_flight_ops", ()) for k in op["keys"]}
+    check(rep.get("ok") and rep["torn"]["present"]
+          and in_flight_named == {int(k) for k in in_flight},
+          f"forensics of the killed writer: torn {rep.get('torn')}, "
+          f"{len(in_flight_named)} keys in flight of {in_flight.size}")
+    keys = np.concatenate([keys, acked])
+    vals = np.concatenate([vals, _expected_values(acked)])
     t0 = time.perf_counter()
     t2, info2 = persist.reopen(path, verify=False, device=DEVICE)
     sync()
@@ -1737,9 +1923,12 @@ def phase_durable(carry, report, card: str, n_fresh: int = DURABLE_FRESH):
     first_segments = t3.recovered_segments
     check(fnd.all() and (v == vals[:1 << 20]).all(), "the first read after the kill is wrong")
     _check_acked(t3, keys, vals, "after the kill")
-    log(f"  durable [{card}]: reopen {reopen_s:.3f}s without verify ({info2['seconds']:.3f}s "
-        f"inside), {verify_s:.3f}s with verify; first 1M-key read {first_s:.3f}s, "
-        f"{first_segments} segments recovered; {keys.size} acknowledged keys checked")
+    log(f"  durable [{card}]: a child process reopened the closed pool, acknowledged "
+        f"{acked.size} more keys and died inside the next flush's commit ({kill_s:.1f}s); "
+        f"forensics named its {in_flight.size} in-flight keys; reopen {reopen_s:.3f}s "
+        f"without verify ({info2['seconds']:.3f}s inside), {verify_s:.3f}s with verify; "
+        f"first 1M-key read {first_s:.3f}s, {first_segments} segments recovered; "
+        f"{keys.size} acknowledged keys checked")
 
     # ---- a torn flush that carries an SMO ----
     wb3 = t3.writeback
@@ -2345,6 +2534,457 @@ def kernel_line(report):
     return json.dumps({"kernels": rows})
 
 
+# ---------------------------------------------------------------------------
+# the sharded DHT: one process per rank (torch.distributed)
+# ---------------------------------------------------------------------------
+
+#: ranks of the full-width DHT, all on the one card: NCCL refuses two ranks
+#: on one device, so they form a gloo group (gloo stages CUDA tensors
+#: through the host itself). Not a multi-GPU scaling result.
+DHT_RANKS = 4
+#: keys loaded into the full-width DHT (cut only by the run's time limit)
+DHT_KEYS = 1_000_000
+#: the global batch of the load's later batches and of the searches
+DHT_BATCH = 1 << 16
+DHT_TICKS, DHT_TICK = 200, 1024
+#: fresh inserts of the ShardFrontend storm (one read of a loaded key each)
+DHT_FRESH = 1 << 14
+#: keys of the one-rank NCCL path
+DHT_NCCL_KEYS = 1 << 16
+#: each shard in the main path's geometry (max_segments, dir_depth_max)
+DHT_GEOMETRY = (32768, 17)
+#: distinct segments a shard may split in one split call
+DHT_SPLIT_LANES = 1024
+DHT_TIMEOUT = 300.0
+#: the run's own budget (its limit is 1200 s) and the DHT phase's cost,
+#: measured on NVIDIA H100 80GB HBM3, 700.00 W: ~60 s whatever the
+#: key count (spawns, the stream, the load's first growing batches) and
+#: ~50 s more for 1M keys. Past the budget the DHT's key count is cut first
+RUN_BUDGET_S = 1000.0
+DHT_FIXED_S = 60.0
+DHT_S_PER_MKEY = 50.0
+DHT_DIR = Path(__file__).resolve().parent / "build" / "dht"
+
+
+def _rank_entry(target, rank: int, world: int, init: str, backend: str, result: str,
+                kw: dict) -> None:
+    """One rank of a spawned group: join the group (file init), run
+    ``target(rank, world, **kw)`` and pickle its result to ``result``. A
+    rank that raises exits 1 at once (its peers would wait in their next
+    collective; the parent kills them)."""
+    import pickle
+    import traceback
+    global DEVICE
+    if kw["device"] == "cpu":
+        DEVICE = "cpu"
+    _child_setup(1 if kw["device"] == "cpu" else 2)
+    import torch.distributed as dist
+    dist.init_process_group(backend, init_method=f"file://{init}", rank=rank,
+                            world_size=world)
+    try:
+        out = target(rank, world, **kw)
+        with open(result, "wb") as f:
+            pickle.dump(out, f)
+        dist.barrier()
+    except BaseException:
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+    dist.destroy_process_group()
+
+
+def _spawn_ranks(target, world: int, backend: str, tag: str, **kw):
+    """Start ``world`` spawned rank processes of ``target``."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    DHT_DIR.mkdir(parents=True, exist_ok=True)
+    init = DHT_DIR / f"pg-{tag}"
+    init.unlink(missing_ok=True)
+    results = [DHT_DIR / f"{tag}-{r}.pkl" for r in range(world)]
+    procs = []
+    for r in range(world):
+        results[r].unlink(missing_ok=True)
+        procs.append(ctx.Process(target=_rank_entry, name=f"{tag}-{r}", args=(
+            target, r, world, str(init), backend, str(results[r]), kw)))
+        procs[-1].start()
+    return procs, results
+
+
+def _wait_ranks(group, timeout: float, what: str) -> list:
+    """Wait for every rank of ``group``; a rank that fails, or a group that
+    outlives ``timeout``, fails the phase (the other ranks are killed).
+    Returns the ranks' results."""
+    import pickle
+    procs, results = group
+    deadline = time.perf_counter() + timeout
+    try:
+        while any(p.is_alive() for p in procs):
+            bad = [p.name for p in procs if p.exitcode not in (None, 0)]
+            check(not bad, f"{what}: rank {bad} failed")
+            check(time.perf_counter() < deadline, f"{what}: outlived {timeout:.0f}s")
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    bad = [p.name for p in procs if p.exitcode != 0]
+    check(not bad, f"{what}: rank {bad} failed")
+    out = []
+    for r in results:
+        with open(r, "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def _dht_stream(rank: int, world: int, device, pool_dir: str):
+    """The card-vs-CPU DHT stream on one rank: inserts through splits,
+    searches, ShardFrontend in both verify modes over durable shard pools
+    (flush-on-publish, recorders with counting clocks), the pools flushed,
+    the table dropped unclosed, each shard reopened lazily and searched.
+    Returns every answer and this rank's planes after each stage."""
+    from repro_torch import interop, persist
+    from repro_torch.core import DashConfig
+    from repro_torch.distributed import DistributedDash, ShardFrontend
+    from repro_torch.serving import frontend as fe
+    cfg = DashConfig(max_segments=32, dir_depth_max=8, init_depth=1, num_buckets=16,
+                     num_slots=8)
+    keys, vals = _stream_keys(21, 3200)
+    d = DistributedDash(cfg, capacity=256, device=device)
+    wbs = persist.create_shard_pools(pool_dir, cfg, world, shards=[rank])
+    for wb in wbs:
+        wb.attach_recorder(_fixed_recorder())
+    d.attach_pools(wbs)
+
+    def planes():
+        return {k: v.copy() for k, v in interop.state_to_numpy(d.state).items()}
+
+    out = [d.insert(keys[:1500], vals[:1500]), *d.search(keys[:2000])]
+    shots = [planes()]
+    for mode, (a, b) in (("device", (1500, 2300)), ("host", (2300, 3100))):
+        f = ShardFrontend(d, max_batch=128, verify_mode=mode)
+        ops = []
+        for k, v in zip(keys[a:b], vals[a:b]):
+            ops += [fe.Op(fe.INSERT, int(k), int(v)), fe.Op(fe.READ, int(keys[int(k) % a]))]
+        for op in ops:
+            check(f.submit(op), "the shard frontend refused an op")
+        f.drain()
+        out.append(np.array([[op.status, int(bool(op.found)), op.result or 0] for op in ops],
+                            np.int64))
+        st = f.stats()
+        out.append(np.array([st[k] for k in ("snapshot_reads", "retried_reads", "published",
+                                              "flushes", "flushed_bytes")], np.int64))
+        shots.append(planes())
+    out.append(np.array([d.flush_pools(), d.n_items]))
+    del f, d, wbs                                  # dropped, never closed
+    states, wbs, info = persist.reopen_shards(pool_dir, shards=[rank], stack=False,
+                                              device=device)
+    d = DistributedDash(cfg, capacity=256, device=device, state=states[0])
+    d.attach_pools(wbs)
+    found, got = d.search(keys[:3100])
+    out += [found, got, np.array([d.recovered_segments, d.n_items, info["dirty_shards"]])]
+    shots.append(planes())
+    d.close_pools()
+    return dict(answers=out, planes=shots)
+
+
+def _timed_exchange(device):
+    """Time every ``all_to_all_single`` of this rank (the card synced on
+    both sides) until the returned ``restore()``; ``spent[0]`` holds the
+    seconds. Returns (spent, restore)."""
+    import torch.distributed as dist
+    spent, orig = [0.0], dist.all_to_all_single
+
+    def timed(*a, **kw):
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orig(*a, **kw)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+
+    def restore():
+        dist.all_to_all_single = orig
+    dist.all_to_all_single = timed
+    return spent, restore
+
+
+def _dht_load(d, keys, vals, batch_cap: int, counts):
+    """Load ``keys`` in global batches that grow with the table (64 keys a
+    segment, at least 256 a rank, at most ``batch_cap``): the main path's
+    rule, so no shard-local batch piles thousands of lanes on a few
+    segments. Returns per-batch (keys, seconds, rounds, splits)."""
+    segs, done, rows = 2 ** d.cfg.init_depth * d.n_shards, 0, []
+    while done < keys.size:
+        b = min(batch_cap, max(256 * d.n_shards, 64 * segs), keys.size - done)
+        r0, s0 = counts["rounds"], counts["splits"]
+        t0 = time.perf_counter()
+        st = d.insert(keys[done:done + b], vals[done:done + b], max_rounds=64)
+        sync()
+        rows.append((b, time.perf_counter() - t0, counts["rounds"] - r0, counts["splits"] - s0))
+        check((st == 0).all(), f"dht load: {int((st != 0).sum())} keys not INSERTED")
+        done += b
+        segs = int(d._sum([int(d.state.watermark)])[0])
+    return rows
+
+
+def _count_calls(d, counts):
+    """Count the DHT's insert rounds and split calls."""
+    for name, key in (("insert_round_fn", "rounds"), ("split_fn", "splits")):
+        fn = getattr(d, name)
+
+        def call(*a, fn=fn, key=key):
+            counts[key] += 1
+            return fn(*a)
+        setattr(d, name, call)
+
+
+def _dht_full(rank: int, world: int, device, n_keys: int, ticks: int, fresh: int,
+              geometry=None):
+    """The DHT at full width on one rank: a shard in the main path's
+    geometry; ``n_keys`` unique uniform keys loaded, searched as hits and as
+    misses in ``DHT_BATCH`` global batches (``fingerprint_probe`` per
+    shard), ``ticks`` read ticks of ``DHT_TICK`` global keys (``fused_probe``
+    per shard), and a ShardFrontend storm of ``fresh`` inserts with a read
+    of a loaded key each; every answer against the ground truth. The
+    kernels' launch counters are set to 0 just before the load and read
+    after the storm; then both read kernels and ``bulk_hash`` are held to
+    their plain versions on this rank's shard-local batches."""
+    import torch.distributed as dist
+    from repro_torch.core import DashConfig, DashState, engine
+    from repro_torch.distributed import DistributedDash, ShardFrontend, np_owner_of
+    from repro_torch.kernels import fused, hashmix, probe
+    from repro_torch.serving import frontend as fe
+    S, depth = geometry or DHT_GEOMETRY
+    cfg = DashConfig(max_segments=S, dir_depth_max=depth)
+    d = DistributedDash(cfg, device=device, q_local_hint=DHT_BATCH // world,
+                        split_lanes=DHT_SPLIT_LANES)
+    # a serving-sized handle on the same shard: its exchange buffers fit a tick
+    t = DistributedDash(cfg, device=device, q_local_hint=DHT_TICK // world,
+                        split_lanes=DHT_SPLIT_LANES, state=d.state)
+    counts = {"rounds": 0, "splits": 0}
+    _count_calls(d, counts)
+    _count_calls(t, counts)
+    spent, restore = _timed_exchange(device)
+    keys = distinct_keys(1 << 44, n_keys)
+    vals = _expected_values(keys)
+    misses = distinct_keys(2 << 44, n_keys)
+    for mod in (hashmix, probe, fused):
+        mod.LAUNCHES = 0
+    sync()
+    t0 = time.perf_counter()
+    rows = _dht_load(d, keys, vals, DHT_BATCH, counts)
+    load_s = time.perf_counter() - t0
+    load_a2a = spent[0]
+    out = dict(load_s=load_s, batches=rows, exchange_load=load_a2a)
+    t0 = time.perf_counter()
+    for what, ks in (("hits", keys), ("misses", misses)):
+        t1 = time.perf_counter()
+        for a in range(0, ks.size, DHT_BATCH):
+            f, v = d.search(ks[a:a + DHT_BATCH])
+            if what == "hits":
+                check(f.all() and (v == vals[a:a + DHT_BATCH]).all(), "dht search: a hit is wrong")
+            else:
+                check(not f.any(), "dht search: an absent key was found")
+        sync()
+        out[f"search_{what}_s"] = time.perf_counter() - t1
+    out["exchange_search"] = spent[0] - load_a2a
+    out["search_s"] = time.perf_counter() - t0
+    batch = keys[:DHT_BATCH]
+    if rank == 0 and device != "cpu":
+        wall, busy, top, _ = busy_share(lambda: d.search(batch))
+        out["trace"] = (wall, busy, top)
+    else:
+        d.search(batch)
+    rng = np.random.default_rng(41)               # the same ticks on every rank
+    tick_ms = []
+    for _ in range(ticks):
+        hit = rng.random(DHT_TICK) < 0.5
+        ks = np.where(hit, keys[rng.integers(0, n_keys, DHT_TICK)],
+                      misses[rng.integers(0, n_keys, DHT_TICK)])
+        t1 = time.perf_counter()
+        f, v = t.search(ks)
+        tick_ms.append((time.perf_counter() - t1) * 1e3)
+        check((f == hit).all() and (v[hit] == _expected_values(ks[hit])).all(),
+              "dht tick: a read is wrong")
+    out["tick_ms"] = np.asarray(tick_ms)
+    # the ShardFrontend storm: fresh inserts with a read of a loaded key each
+    new = distinct_keys(3 << 44, fresh)
+    f = ShardFrontend(t, max_batch=256, queue_depth=1 << 16)
+    ops = []
+    r0, s0 = counts["rounds"], counts["splits"]
+    t1 = time.perf_counter()
+    for a in range(0, fresh, 256):
+        block = []
+        for k in new[a:a + 256]:
+            block += [fe.Op(fe.INSERT, int(k), int(_expected_values(np.array([k]))[0])),
+                      fe.Op(fe.READ, int(keys[int(k) % n_keys]))]
+        for op in block:
+            check(f.submit(op), "the shard frontend refused an op")
+        ops += block
+        f.step()
+    f.drain()
+    out["storm_s"] = time.perf_counter() - t1
+    out["storm_rounds"], out["storm_splits"] = counts["rounds"] - r0, counts["splits"] - s0
+    rd = [op for op in ops if op.kind == fe.READ]
+    check(all(op.status == 0 for op in ops if op.kind == fe.INSERT),
+          "dht storm: an insert did not land")
+    check(all(op.found and op.result == int(_expected_values(np.array([op.key], np.uint64))[0])
+              for op in rd), "dht storm: a read is wrong")
+    out["sojourn_ms"] = np.asarray(f.read_latencies) * 1e3
+    st = f.stats()
+    out["storm_stats"] = {k: st[k] for k in ("published", "snapshot_reads", "retried_reads")}
+    n_items = d.n_items
+    check(n_items == n_keys + fresh, f"dht n_items {n_items} != {n_keys + fresh}")
+    out["launches"] = {"bulk_hash": hashmix.LAUNCHES, "fingerprint_probe": probe.LAUNCHES,
+                       "fused_probe": fused.LAUNCHES}
+    out["segments"] = int(d._sum([int(d.state.watermark)])[0])
+    out["state_mb"] = sum(x.numel() * x.element_size() for x in d.state) / 2**20
+    # both read kernels and bulk_hash against their plain versions on this
+    # rank's shard-local batches (the card's shard and a CPU copy of it)
+    mine = keys[np_owner_of(keys, world) == rank]
+    host = DashState(*(x.cpu() for x in d.state))
+    from repro_torch.core import hashing
+    errs = {}
+    for plan, n in (("pallas", DHT_BATCH // world), ("fused", DHT_TICK // world)):
+        probe_keys = np.concatenate([mine[:n // 2], misses[:n - n // 2]])
+        hi, lo = hashing.split_keys(probe_keys, device)
+        got = engine.search_batch(cfg, "eh", d.state, hi, lo, batching=plan)
+        want = engine.search_batch(cfg, "eh", host, hi.cpu(), lo.cpu(), batching=plan)
+        errs[plan] = max_abs_err([g.cpu() for g in got], want)
+    h_got = hashmix.bulk_hash(hi, lo)
+    h_want = hashmix.bulk_hash_plain(hi.cpu(), lo.cpu())
+    errs["bulk_hash"] = max_abs_err([g.cpu() for g in h_got], h_want)
+    out["errs"] = errs
+    restore()
+    return out
+
+
+def _dht_card_rank(rank: int, world: int, device, pool_dir: str, **full):
+    """A card rank: the card-vs-CPU stream, then the full-width DHT."""
+    t0 = time.perf_counter()
+    stream = _dht_stream(rank, world, device, pool_dir)
+    return dict(stream=stream, stream_s=time.perf_counter() - t0,
+                full=_dht_full(rank, world, device, **full))
+
+
+def start_dht_nccl(nccl_keys: int = DHT_NCCL_KEYS, geometry=None):
+    """Start the one-rank NCCL group of the DHT path (``_dht_full`` at
+    ``nccl_keys``). The run starts it beside the card-vs-CPU streams, which
+    time nothing; ``phase_dht`` reads its result."""
+    dev = "cuda:0" if DEVICE == "cuda" else "cpu"
+    return _spawn_ranks(_dht_full, 1, "nccl" if DEVICE == "cuda" else "gloo", "nccl",
+                        device=dev, n_keys=nccl_keys, ticks=20, fresh=1024,
+                        geometry=geometry or DHT_GEOMETRY)
+
+
+def phase_dht(report, card: str, nccl, n_keys: int = DHT_KEYS, geometry=None,
+              ticks: int = DHT_TICKS, fresh: int = DHT_FRESH):
+    """The sharded DHT (``repro_torch.distributed``), one process per rank:
+    the card-vs-CPU stream on 4 gloo ranks on the card and 4 on the CPU
+    (answers, every rank's planes after every stage and every shard pool
+    file byte-identical); then, on the card ranks, the full-width DHT
+    (``_dht_full``). ``nccl`` is the result of the same path on the
+    one-rank NCCL group (``start_dht_nccl``, waited on by the caller). The
+    launch counters of both full-width runs are summed over the ranks. A
+    CPU rehearsal passes a smaller ``geometry`` (max_segments,
+    dir_depth_max) and counts."""
+    geometry = geometry or DHT_GEOMETRY
+    t_phase = time.perf_counter()
+    shutil.rmtree(DHT_DIR, ignore_errors=True)
+    pools = {dev: str(DHT_DIR / f"pools-{dev}") for dev in ("cpu", "card")}
+    dev = "cuda:0" if DEVICE == "cuda" else "cpu"
+    cpu = _spawn_ranks(_dht_stream, DHT_RANKS, "gloo", "cpu", device="cpu",
+                       pool_dir=pools["cpu"])
+    ranks = _wait_ranks(_spawn_ranks(_dht_card_rank, DHT_RANKS, "gloo", "card",
+                                     device=dev, pool_dir=pools["card"], n_keys=n_keys,
+                                     ticks=ticks, fresh=fresh, geometry=geometry),
+                        DHT_TIMEOUT, "the card's DHT ranks")
+    cpu_ranks = _wait_ranks(cpu, DHT_TIMEOUT, "the CPU's DHT ranks")
+    for r, (mine, theirs) in enumerate(zip(ranks, cpu_ranks)):
+        a, b = mine["stream"], theirs
+        check(len(a["answers"]) == len(b["answers"]), "dht stream: answer counts differ")
+        for i, (x, y) in enumerate(zip(a["answers"], b["answers"])):
+            check(np.array_equal(x, y), f"dht stream: rank {r} answer {i} differs between "
+                  f"cuda and cpu")
+        for i, (x, y) in enumerate(zip(a["planes"], b["planes"])):
+            bad = [k for k in x if x[k].tobytes() != y[k].tobytes()]
+            check(not bad, f"dht stream: rank {r} planes after stage {i} differ in {bad}")
+    for i in range(DHT_RANKS):
+        name = f"shard_{i:04d}.pool"
+        with open(os.path.join(pools["card"], name), "rb") as f, \
+                open(os.path.join(pools["cpu"], name), "rb") as g:
+            check(f.read() == g.read(), f"dht stream: shard {i}'s pool files differ")
+    stream = ranks[0]["stream"]["answers"]
+    dirty = [r["stream"]["answers"][-1][2] for r in ranks]     # each reopened its own
+    recovered = stream[-1][0]
+    check(recovered > 0 and dirty == [1] * DHT_RANKS, f"dht stream: dirty shards {dirty}, "
+          f"{recovered} segments recovered")
+    full = [r["full"] for r in ranks]
+    for path, runs in (("dht", full), ("dht nccl", [nccl])):
+        for kernel in ("bulk_hash", "fingerprint_probe", "fused_probe"):
+            count = sum(x["launches"][kernel] for x in runs)
+            check(count > 0 or DEVICE != "cuda", f"{kernel} was not launched on the {path} path")
+            r = report.setdefault(kernel, {})
+            r.setdefault("paths", {})[path] = count
+            r["launches"] = sum(r["paths"].values())
+        errs = {k: max(x["errs"][k] for x in runs) for k in runs[0]["errs"]}
+        check(not any(errs.values()), f"{path}: a kernel disagrees with its plain version "
+              f"on shard-local batches: {errs}")
+    f0 = full[0]
+    rows = np.array(f0["batches"], np.float64)
+    big = rows[rows[:, 0] == DHT_BATCH]
+    sj, tk = f0["sojourn_ms"], f0["tick_ms"]
+    out = dict(insert_mops=n_keys / f0["load_s"] / 1e6,
+               search_mops=2 * n_keys / f0["search_s"] / 1e6,
+               exchange_share=f0["exchange_load"] / f0["load_s"],
+               exchange_search=f0["exchange_search"] / f0["search_s"],
+               p50=np.percentile(sj, 50), p99=np.percentile(sj, 99),
+               tick_p50=np.percentile(tk, 50), tick_p99=np.percentile(tk, 99),
+               keys=n_keys, segments=f0["segments"], nccl=nccl)
+    launches = {k: report[k]["paths"]["dht"] for k in ("bulk_hash", "fingerprint_probe",
+                                                        "fused_probe")}
+    log(f"  dht [{card}]: {DHT_RANKS} ranks in a gloo group sharing one card (not a "
+        f"multi-GPU scaling result; gloo stages each exchange through the host); each "
+        f"shard DashConfig(max_segments={geometry[0]}, dir_depth_max={geometry[1]}), "
+        f"{f0['state_mb']:.0f} MB "
+        f"of planes a shard; {n_keys} keys loaded in {len(rows)} global batches "
+        f"({rows[:, 0].min():.0f} to {rows[:, 0].max():.0f} keys, growing with the table), "
+        f"{f0['load_s']:.1f}s, {out['insert_mops']:.3f} Mops/s; rounds per batch "
+        f"{rows[:, 2].mean():.2f}, split calls per batch {rows[:, 3].mean():.2f} (at "
+        f"{DHT_BATCH} keys: {big[:, 2].mean() if big.size else 0:.2f} / "
+        f"{big[:, 3].mean() if big.size else 0:.2f}); the exchange "
+        f"{out['exchange_share']:.3f} of the load's wall time; {f0['segments']} segments")
+    log(f"  dht [{card}]: search {n_keys} hits {f0['search_hits_s']:.2f}s and {n_keys} "
+        f"misses {f0['search_misses_s']:.2f}s in {DHT_BATCH}-key batches, "
+        f"{out['search_mops']:.3f} Mops/s, the exchange {out['exchange_search']:.3f} of it; "
+        f"{len(tk)} ticks of {DHT_TICK} keys p50 {out['tick_p50']:.3f} ms p99 "
+        f"{out['tick_p99']:.3f} ms; ShardFrontend storm {fresh} inserts + {fresh} "
+        f"reads in {f0['storm_s']:.1f}s ({f0['storm_rounds']} rounds, {f0['storm_splits']} "
+        f"split calls, {f0['storm_stats']}), read sojourn p50 {out['p50']:.3f} ms p99 "
+        f"{out['p99']:.3f} ms")
+    if "trace" in f0:
+        wall, busy, top = f0["trace"]
+        log(f"  trace dht [{card}] one {DHT_BATCH}-key read batch on rank 0: wall "
+            f"{wall * 1e3:.1f} ms, its process busy on the card {busy * 1e3:.1f} ms (busy "
+            f"share {busy / wall:.3f}); top: " + "; ".join(f"{k} {v:.2f} ms" for k, v in top))
+    n_nccl = sum(b[0] for b in nccl["batches"])
+    log(f"  dht [{card}]: the card-vs-CPU stream took {ranks[0]['stream_s']:.1f}s on the "
+        f"card ranks")
+    log(f"  dht nccl [{card}]: one rank, {n_nccl} keys in {nccl['load_s']:.2f}s, search "
+        f"{2 * n_nccl / nccl['search_s'] / 1e6:.3f} Mops/s (beside the card-vs-CPU "
+        f"streams), every answer checked; launches "
+        f"{nccl['launches']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase dht: ok card and CPU streams byte-identical (answers, planes after every "
+        f"stage, {DHT_RANKS} shard pool files); every full-width answer checked; kernels "
+        f"exact on shard-local batches; launches {launches} ({out['seconds']:.1f}s) [{card}]")
+    return out
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--keys", type=int, default=20_000_000,
@@ -2374,10 +3014,13 @@ def main(argv=None) -> int:
         log(f"frontend cut: {args.fe_keys} keys of 8000000")
     report = {}
     t0 = time.perf_counter()
+    cpu_child = start_cpu_halves()
     try:
         phase_build()
         phase_bulk_hash(report)
-        phase_cuda_vs_cpu()
+        nccl = start_dht_nccl()           # beside the streams, which time nothing
+        phase_cuda_vs_cpu(cpu_child)
+        nccl = _wait_ranks(nccl, DHT_TIMEOUT, "the DHT's NCCL rank")[0]
         phase_edges()
         t, keys, misses, summary, truth = phase_main_path(
             DashConfig(max_segments=32768, dir_depth_max=17), args.keys, 1000, report)
@@ -2395,9 +3038,20 @@ def main(argv=None) -> int:
         del t
         phase_shrink(DashConfig(max_segments=32768, dir_depth_max=17))
         base = phase_baselines(report, card)
+        n_dht, elapsed = DHT_KEYS, time.perf_counter() - t0
+        if elapsed + DHT_FIXED_S + DHT_S_PER_MKEY > RUN_BUDGET_S:
+            # the run's time limit cuts the DHT's key count first
+            left = max(RUN_BUDGET_S - elapsed - DHT_FIXED_S, 0.0) / DHT_S_PER_MKEY
+            n_dht = max(DHT_BATCH, int(DHT_KEYS * left) // DHT_BATCH * DHT_BATCH)
+            log(f"dht cut: {n_dht} keys of {DHT_KEYS} ({elapsed:.0f}s of the run spent)")
+        dht = phase_dht(report, card, nccl, n_dht)
     except PhaseError as e:
         log(f"FAILED: {e}")
         return 1
+    finally:
+        if cpu_child.is_alive():
+            cpu_child.kill()
+            cpu_child.join()
     for name in KERNELS:
         r = report[name]
         floor = (f"; latency floor {r['floor_ms'] * 1e3:.2f} us" if "floor_ms" in r else "")
@@ -2447,7 +3101,15 @@ def main(argv=None) -> int:
         f"{base['prefix']['hit_rate']:.4f}, {base['prefix']['evictions']} evictions, "
         f"{base['prefix']['match_us']:.1f} us per match_prefix; dedup {base['dedup']['skipped']} "
         f"of {base['dedup']['seen']} docs skipped, {base['dedup']['doc_us']:.1f} us per document; "
-        f"phase {base['seconds']:.0f}s; total {time.perf_counter() - t0:.0f}s")
+        f"phase {base['seconds']:.0f}s")
+    log(f"end to end dht [{card}]: {DHT_RANKS} ranks sharing the card through gloo (not a "
+        f"multi-GPU scaling result): insert {dht['insert_mops']:.3f} Mops/s, search "
+        f"{dht['search_mops']:.3f} Mops/s (the exchange {dht['exchange_share']:.3f} of the "
+        f"load, {dht['exchange_search']:.3f} of the searches), tick p50 "
+        f"{dht['tick_p50']:.3f} ms p99 {dht['tick_p99']:.3f} ms, ShardFrontend read sojourn "
+        f"p50 {dht['p50']:.3f} ms p99 {dht['p99']:.3f} ms ({dht['keys']} keys, "
+        f"{dht['segments']} segments); phase {dht['seconds']:.0f}s; total "
+        f"{time.perf_counter() - t0:.0f}s")
     log(card)
     log(kernel_line(report))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

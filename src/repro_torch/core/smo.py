@@ -314,6 +314,56 @@ def bulk_split_phase2(cfg: DashConfig, state: DashState, old, new, valid,
     return state, ok | ~valid
 
 
+#: the reference's names of the unjitted bodies its DHT runs per shard: the
+#: two phases here already are those bodies
+bulk_split_phase1_local = bulk_split_phase1
+bulk_split_phase2_local = bulk_split_phase2
+
+
+# ---------------------------------------------------------------------------
+# shard-local split planning (the DHT's split program)
+# ---------------------------------------------------------------------------
+
+def plan_local_splits(cfg: DashConfig, state: DashState, h1, want, k_max: int):
+    """Plan up to ``k_max`` segment splits from pressured keys on the
+    state's device, without a host sync: ``h1`` (N,) are the hash1 words
+    of this shard's keys, ``want`` (N,) the lanes demanding a split. Their
+    directory targets are deduped to unique segment ids (ascending), fresh
+    ids are assigned off the watermark, and resource exhaustion comes back
+    as flags instead of a partial plan. Returns ``(old, new, valid,
+    depth_bad, pool_bad)``, the first three (k_max,); surplus pressured
+    segments stay NEED_SPLIT and are planned next round."""
+    S = cfg.max_segments
+    dev = h1.device
+    seg = torch.where(want, state.dir[layout.dir_index(cfg, h1)].long(), S)
+    seg_sorted = torch.sort(seg).values
+    first = torch.ones_like(seg_sorted, dtype=torch.bool)
+    first[1:] = seg_sorted[1:] != seg_sorted[:-1]
+    uniq = first & (seg_sorted < S)
+    pos = torch.cumsum(uniq.long(), 0) - 1
+    take = uniq & (pos < k_max)
+    old = torch.full((k_max + seg_sorted.numel(),), -1, dtype=torch.int64, device=dev)
+    # a lane outside the plan stores into a trash slot of its own
+    trash = k_max + torch.arange(seg_sorted.numel(), device=dev)
+    old[torch.where(take, pos, trash)] = seg_sorted
+    old = old[:k_max]
+    valid = old >= 0
+    k = valid.sum()
+    new = torch.where(valid, state.watermark.long() + torch.cumsum(valid.long(), 0) - 1, -1)
+    depth_bad = (valid & (state.local_depth[old.clamp(0, S - 1)] >= cfg.dir_depth_max)).any()
+    pool_bad = state.watermark.long() + k > S
+    return old.int(), new.int(), valid, depth_bad, pool_bad
+
+
+def split_segments_local(cfg: DashConfig, state: DashState, old, new, valid):
+    """Phase 1 + phase 2 of a bulk split on one shard's state, in place, as
+    the DHT's split program runs them. Returns ``(state, ok (K,))`` with
+    phase 2's semantics for False lanes (source still SPLITTING; the host
+    repairs it by the scan rehash)."""
+    state = bulk_split_phase1(cfg, state, old, new, valid)
+    return bulk_split_phase2(cfg, state, old, new, valid, False)
+
+
 class BulkSplitTask:
     """Staged EH bulk split: PHASE1 -> PHASE2 -> COMMIT, one stage per
     ``pump`` call. Run to completion it is exactly ``bulk_split``. Only the

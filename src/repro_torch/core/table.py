@@ -95,6 +95,18 @@ class InsertJob:
 FUSED_THRESHOLD_DEFAULT = 1024
 
 
+def search_plan(cfg: DashConfig, n: int,
+                fused_threshold: int = FUSED_THRESHOLD_DEFAULT) -> str:
+    """The read plan of an ``n``-key batch: the fused one-kernel path for
+    small batches, the fingerprint kernel path for large batches on
+    eligible configs, per-key vmap otherwise."""
+    if n <= fused_threshold and fused.fused_search_eligible(cfg):
+        return "fused"
+    if n >= 256 and engine.pallas_search_eligible(cfg):
+        return "pallas"
+    return "vmap"
+
+
 class DashTable:
     """Shared host logic; subclasses define addressing + pressure handling.
 
@@ -194,15 +206,6 @@ class DashTable:
             return "fused", capacity
         return "segment", capacity
 
-    def _search_plan(self, n: int) -> str:
-        """The fused one-kernel path for small batches, the fingerprint
-        kernel path for large batches on eligible configs, per-key vmap
-        otherwise."""
-        if n <= self.fused_threshold and fused.fused_search_eligible(self.cfg):
-            return "fused"
-        if n >= 256 and engine.pallas_search_eligible(self.cfg):
-            return "pallas"
-        return "vmap"
 
     def _ensure_recovered(self, touched):
         """Lazy per-segment recovery over precomputed touched segment ids."""
@@ -283,7 +286,8 @@ class DashTable:
         if self.lazy_recovery:
             self._ensure_recovered(self._segments_of(hi, lo))
         found, vals = engine.search_batch(self.cfg, self.mode, self.state, hi, lo,
-                                          batching=self._search_plan(hi.shape[0]),
+                                          batching=search_plan(self.cfg, hi.shape[0],
+                                                               self.fused_threshold),
                                           words=w)
         return found.cpu().numpy(), vals.cpu().numpy().view(np.uint32)
 

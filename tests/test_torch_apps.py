@@ -88,6 +88,8 @@ def test_content_hashes_match_reference():
 @pytest.mark.parametrize("script,args,expect", [
     ("quickstart_torch.py", ["--keys", "2000"], "Dash-LH: 500 items"),
     ("dedup_pipeline_torch.py", ["--batches", "3"], "batch 3: docs seen"),
+    ("distributed_dht_torch.py", ["--ranks", "2", "--keys", "3000"],
+     "inserted 3000 across 2 shards; search hit 3000/3000"),
 ])
 def test_example_twins_run_on_cpu(script, args, expect):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: no module of ``repro_torch``, not
-``chip_smoke.py`` and not the example twins import JAX or anything of the
-JAX package ``repro`` — not even its framework-free modules (the port keeps
-its own copies)."""
+``chip_smoke.py``, not the example twins and not the script twins import
+JAX or anything of the JAX package ``repro`` — not even its framework-free
+modules (the port keeps its own copies)."""
 import ast
 from pathlib import Path
 
@@ -9,7 +9,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-         + sorted((ROOT / "examples").glob("*_torch.py")))
+         + sorted((ROOT / "examples").glob("*_torch.py"))
+         + sorted((ROOT / "scripts").glob("*_torch.py")))
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 
@@ -29,7 +30,8 @@ def test_port_files_found():
     names = {p.name for p in FILES}
     assert {"engine.py", "fused.py", "probe.py", "hashmix.py", "level.py", "baselines.py",
             "prefix_cache.py", "dedup.py", "pipeline.py", "chip_smoke.py",
-            "quickstart_torch.py", "dedup_pipeline_torch.py"} <= names
+            "quickstart_torch.py", "dedup_pipeline_torch.py", "dht.py",
+            "forensics_torch.py", "distributed_dht_torch.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

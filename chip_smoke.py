@@ -57,7 +57,8 @@ Phases, each printed on its own line and each able to fail the run:
      recovered, then a second crash recovered eagerly by ``recover_all``;
   7b. the serving frontend at full width: a fresh DashEH in the main
      path's geometry loaded with 4M keys (cut from 8M by the time limit),
-     then a split storm of 262,144 fresh inserts, one read of a loaded key
+     then a split storm of 131,072 fresh inserts (cut from 262,144 by the
+     time limit), one read of a loaded key
      per insert, an update every third and 128 YCSB-A ops (zipfian 0.99)
      per 256 inserts, through DashFrontend (max_batch 256) and through
      StopTheWorldFrontend on a clone of the loaded state: every read pre-
@@ -69,8 +70,9 @@ Phases, each printed on its own line and each able to fail the run:
      50 traced ticks. Launch counters as on the main path;
   7c. the durable pool at full width, on the frontend's table after its
      storm: a fresh pool file (969 MB logical, 433 MB of planes) attached
-     and checkpointed by a full flush; a split storm of 65,536 fresh
-     inserts (the 7b stream's shape) through DashFrontend with
+     and checkpointed by a full flush; a split storm of 16,384 fresh
+     inserts (cut from 65,536 by the time limit; the 7b stream's shape)
+     through DashFrontend with
      flush-on-publish, the scrubber every tick and the flight recorder;
      the table dropped without ``close()``, reopened without and with
      checksum verification, the first 1M-key read recovering lazily and
@@ -95,28 +97,30 @@ Phases, each printed on its own line and each able to fail the run:
      active, and both read kernels are held to their plain versions on
      the filled LH table, on lanes and ticks that reach that segment;
      ``fingerprint_probe`` timed at 1M LH lanes;
-  9. shrink: a DashEH in the main path's pool geometry loaded with 0.5M
-     keys, 0.4M deleted, ``shrink()``, the survivors and the deleted keys
-     checked, then 0.25M fresh keys inserted: the watermark may grow only
+  9. shrink: a DashEH in the main path's pool geometry loaded with 0.25M
+     keys (cut from 0.5M by the time limit), 0.2M deleted, ``shrink()``,
+     the survivors and the deleted keys checked, then 0.125M fresh keys
+     inserted: the watermark may grow only
      once the freed ids are used up;
  10. baselines: ``level_scan`` exact against its plain version (the
      3000-key level-hashing stream's batches, full and masked, and a key
-     that inserts by the move); then the same 1M unique uniform keys (cut
+     that inserts by the move); then the same 0.5M unique uniform keys (cut
      from 2M by the time limit) loaded into Dash-EH, CCEH and Bucketized
      (32768 segments at most, in the main path's growing batches) and level hashing (``max_log2=20``,
      ~82 MB of planes, in Fig. 7's 4096-key batches) with the launch
      counters set to 0 just before and read just after: insert rates, the load factor after every 1/16 of the load
-     (Fig. 12's curve), 1M positive and 1M negative searches, every key
+     (Fig. 12's curve), 0.5M positive and 1M negative searches, every key
      found with its value and no absent key found, the busy share of one
      traced level-hashing and one traced CCEH load batch; both read
      kernels exact on the Bucketized planes (no stash) and timed there;
      Fig. 13's optimistic and pessimistic search of 2048 keys on a clone
      of the Dash-EH table (equal answers, versions up 4 per touch);
      ``level_scan`` exact and timed at the load's 4096-key batch on the
-     loaded table; the prefix cache (1000 prompts of 256 tokens from 64
-     shared prefixes, cut from 2000 by the time limit; 4096 pages,
-     evictions) and the dedup stream of
-     ``examples/dedup_pipeline.py``. Phase 3 also streams level hashing
+     loaded table; the prefix cache (400 prompts of 256 tokens from 64
+     shared prefixes, cut from 2000 by the time limit; 2048 pages, cut from
+     4096, evictions) and the dedup stream of
+     ``examples/dedup_pipeline.py`` (15 of its 30 batches). Phase 3 also
+     streams level hashing
      (through 6 rehashes), CCEH, Bucketized, the pessimistic search (EH
      and LH), the prefix cache and the dedup filter on the card and on the
      CPU, byte-identical;
@@ -139,11 +143,33 @@ Phases, each printed on its own line and each able to fail the run:
      batch; the kernels held to their plain versions on shard-local
      batches; the same path on a one-rank NCCL group at 65,536 keys. Past
      1000 s of the run the DHT's key count is cut first (logged).
+ 12. LM serving at full width (run before 11, so that the run's budget
+     can still cut the DHT's keys): yi-6b at its published widths and
+     depth (32 layers, d_model 4096, 32 heads, GQA 4, d_ff 11008, vocab
+     64000, bf16: 6,060,769,280 weights, ~12.1 GB), random weights drawn
+     on the card from a seed, served by ``ServingEngine`` with the Dash
+     prefix cache as its KV-page directory (cache 1024 tokens, 1024 pages
+     of 16 tokens, 4 lanes): 3 rounds of 4 requests, each a 512-token
+     shared system prompt plus 128 fresh tokens, 32 new tokens each. The
+     launch counters are set to 0 just before the rounds and read just
+     after. Checks: 11 of 12 requests reuse 512 cached tokens and prefill
+     128, no logit is non-finite, the prefix table's ``n_items`` equals its
+     recount, and decode agrees with prefill at full width (64 tokens; the
+     reference's tolerance, rtol 0.12 atol 0.6, and the same argmax).
+     Prints weights, pool and peak HBM; prefill ms cold (640 tokens) and of
+     a 128-token suffix against the FLOP bound; decode step p50/p99 and
+     tokens/s against the byte bound (weights + KV); the hit rate, µs per
+     ``match_prefix``, ms per ``admit``; the busy share of one traced
+     decode step (with its top device ops) and one traced suffix prefill.
+     Phase 3 also streams the LM engine on the card and on the CPU in
+     float32 (reduced yi-6b, and reduced h2o-danube-3-4b whose window
+     rolls the ring): tokens, counts, pages, the prefix cache's state and
+     planes equal, the page pool's K/V within 1e-4.
 
-Each kernel's ``launches`` in the JSON line is the sum over the seven
+Each kernel's ``launches`` in the JSON line is the sum over the eight
 paths driven with counters (the EH main path, the frontend, the durable
 path, the LH path, the baselines' load, the 4-rank DHT summed over its
-ranks and the one-rank NCCL DHT). The durable line also prints
+ranks, the one-rank NCCL DHT and the LM serving path). The durable line also prints
 the bytes that really crossed to the host a flush. The last three
 lines are the card line, one JSON object describing every kernel, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -178,14 +204,20 @@ DEVICE = "cuda"                  # a CPU rehearsal of the phases sets "cpu"
 LH_KEYS = 4_000_000
 #: the frontend phase: keys loaded, then fresh keys of its split storm
 FE_KEYS = 4_000_000
-FE_FRESH = 1 << 18
+FE_FRESH = 1 << 17
 #: the shrink phase: keys loaded (80 % then deleted), then fresh keys
 #: (cut from 1M when the baselines phase came: whole runs took 925-1250 s
 #: of the 1200 with the host's speed)
-SHRINK_KEYS = 500_000
+SHRINK_KEYS = 250_000
 #: the durable phase's storm: fresh inserts through flush-on-publish (cut
 #: from 65,536 by the time limit: every flush fences the 969 MB mapping)
-DURABLE_FRESH = 1 << 15
+DURABLE_FRESH = 1 << 14
+# The LM phase came with these cuts: on a host where the same phases ran
+# 30-40 % slower than PR 17's final run, the whole run reached 1259 s
+# before its DHT phase. The frontend's storm was halved (from 262,144),
+# shrink's keys (from 500,000), the durable storm (from 32,768), the
+# baselines' load (from 1M), the prefix-cache prompts (from 1000, to 400)
+# and the dedup stream's batches (from 30).
 #: pool files (the emulated PM) live here, under the git-ignored build/
 POOL_DIR = Path(__file__).resolve().parent / "build" / "pools"
 
@@ -595,6 +627,55 @@ def _dedup_stream(device, seed: int):
     return d.table, out
 
 
+#: the LM card-vs-CPU streams: float answers (the page pool's K/V) within
+#: this f32 tolerance (the CPU tests' summation-order tolerance); every
+#: integer answer exact
+LM_STREAM_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _lm_stream(arch: str, device, seed: int):
+    """Two rounds of 4 requests (64 shared tokens + 36 fresh, 5 new tokens)
+    through ``ServingEngine`` over the reduced ``arch`` in float32, weights
+    drawn on the CPU from ``seed``: 16 pages, so the second round evicts.
+    h2o-danube-3-4b's window (64) makes its cold prefill take the band with
+    a ragged length and roll its ring. Every request's tokens and counts,
+    every ``match_prefix`` and ``admit`` answer, the cache's host state and
+    stats, then the page pool's K/V (float, within ``LM_STREAM_TOL``)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import Request, ServingEngine
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
+    cfg = dataclasses.replace(get_config(arch, reduced=True), dtype="float32")
+    eng = ServingEngine(cfg, init_params(cfg, seed, "cpu").to(device), cache_len=128,
+                        num_pages=16, batch_size=4)
+    out = []
+    match, admit = eng.prefix.match_prefix, eng.prefix.admit
+
+    def logged_match(tokens):
+        pages, n = match(tokens)
+        out.append(np.array(pages + [n], np.int64))
+        return pages, n
+
+    def logged_admit(tokens, first_new_block=0):
+        pages = admit(tokens, first_new_block)
+        out.append(np.array(pages, np.int64))
+        return pages
+    eng.prefix.match_prefix, eng.prefix.admit = logged_match, logged_admit
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(1, cfg.vocab_size, 64)
+    for r in range(2):
+        reqs = [Request(4 * r + i, np.concatenate([shared, rng.integers(1, cfg.vocab_size, 36)]),
+                        max_new_tokens=5) for i in range(4)]
+        eng.run(reqs)
+        out += [np.array(q.generated + [q.cached_tokens, q.prefilled_tokens]) for q in reqs]
+    c = eng.prefix
+    out += [np.array(c.free, np.int64), np.array(sorted(c.lru.items()), np.int64).ravel(),
+            np.array(list(vars(c.stats).values()) + [eng.flops_saved_tokens])]
+    out += [eng.pool.storage[0][f].cpu().numpy() for f in ("k", "v")]
+    return c.table, out
+
+
 def _fixed_recorder():
     """A flight recorder whose clocks count calls: the same stream writes
     the same recorder windows, so pool files compare byte for byte."""
@@ -746,6 +827,8 @@ def _stream_table():
         "pessimistic": lambda dev: _pessimistic_stream(dev, 18),
         "prefix cache": lambda dev: _prefix_stream(dev, 19),
         "dedup": lambda dev: _dedup_stream(dev, 20),
+        "lm yi-6b": lambda dev: _lm_stream("yi-6b", dev, 21),
+        "lm h2o-danube-3-4b": lambda dev: _lm_stream("h2o-danube-3-4b", dev, 22),
     }
     return streams, set(durable)
 
@@ -892,7 +975,9 @@ def phase_cuda_vs_cpu(cpu_child):
         out_cpu, planes_cpu, _ = cpu[name]
         check(len(out_gpu) == len(out_cpu), f"{name}: answer counts differ")
         for i, (a, b) in enumerate(zip(out_gpu, out_cpu)):
-            check(np.array_equal(a, b), f"{name}: answer {i} differs between cuda and cpu")
+            same = (a.shape == b.shape and np.allclose(a, b, **LM_STREAM_TOL)
+                    if name.startswith("lm ") and a.dtype.kind == "f" else np.array_equal(a, b))
+            check(same, f"{name}: answer {i} differs between cuda and cpu")
         a = (child_card[name][1] if name in child_card
              else None if t_gpu is None else interop.state_to_numpy(t_gpu.state))
         if a is not None:
@@ -952,6 +1037,12 @@ def phase_cuda_vs_cpu(cpu_child):
     check(pc_stats[4] > 0 and pc_stats[1] > 0, f"prefix cache stream: stats {pc_stats}")
     seen, skipped, unique = facts["dedup"][1][-1]
     check(skipped > 0 and unique == seen - skipped, f"dedup stream: {seen} {skipped} {unique}")
+    lm_facts = []
+    for name in ("lm yi-6b", "lm h2o-danube-3-4b"):
+        _, hits, _, _, evictions, saved = facts[name][1][-3]
+        check(evictions > 0 and saved == 7 * 64, f"{name}: {evictions} evictions, "
+              f"{saved} prefill tokens saved")
+        lm_facts.append(f"{name[3:]} {hits} hit blocks, {evictions} evictions")
     baseline_facts = (
         f"level hashing k {lvl[0]} after {lvl[1]} rehashes; CCEH "
         f"{facts['cceh'][0].n_segments} segments, load factor "
@@ -968,7 +1059,9 @@ def phase_cuda_vs_cpu(cpu_child):
         f"{', '.join(fe_counts)}; pointer stream {t_ptr.n_segments} segments, heap_top "
         f"{int(t_ptr.state.heap_top)}; durable streams with byte-identical pool files "
         f"after every flush ({'; '.join(durable_facts)}); baselines and apps "
-        f"({baseline_facts}) ({time.perf_counter() - t0:.1f}s: this process's card "
+        f"({baseline_facts}); LM serving streams in float32 with equal tokens, pages "
+        f"and prefix planes, the page pool within {LM_STREAM_TOL['atol']} "
+        f"({'; '.join(lm_facts)}) ({time.perf_counter() - t0:.1f}s: this process's card "
         f"halves {card_s:.1f}s, then {wait_s:.1f}s waiting on the other card processes and "
         f"the CPU child; slowest streams on the card "
         + ", ".join(f"{k} {v:.1f}s" for k, v in slowest) + ")")
@@ -2049,7 +2142,7 @@ def phase_shrink(cfg, n_keys: int = SHRINK_KEYS, n_fresh: int = SHRINK_KEYS // 2
 
 #: the baselines phase: unique uniform keys loaded into each of its four
 #: tables, cut from 2M by the run's time limit (see PREFIX_PROMPTS)
-BASE_KEYS = 1_000_000
+BASE_KEYS = 500_000
 #: level hashing's load batches: Fig. 7's batch (benchmarks/single_op.py), and
 #: the shape ``level_scan`` is held and timed at. Level hashing has no
 #: segments for the Dash tables' growing batches (``eh_batch``) to follow.
@@ -2228,12 +2321,17 @@ def _fig13(t, keys, misses, card: str):
 #: prompts took 92.8 s and 121.3 s in two whole runs that ended at 1019.5 s
 #: and 1121.7 s of 1200, and a run with 1000 prompts took 1250 s on a slower
 #: host, so the 2M-key load and the shrink phase were cut too. 1000 prompts
-#: admit ~4800 blocks into 4096 pages.
-PREFIX_PROMPTS = 1000
+#: admit ~4800 blocks into 4096 pages; 400 (the LM phase's cut) admit
+#: ~2400 blocks, so the pool was cut to 2048 pages and eviction still runs.
+PREFIX_PROMPTS = 400
+PREFIX_PAGES = 2048
+#: batches of the dedup stream (the example's 30, halved by the time limit)
+DEDUP_BATCHES = 15
 
 
-def _prefix_cache_app(card: str, n_prompts: int = PREFIX_PROMPTS, n_pages: int = 4096):
-    """DashPrefixCache(num_pages=4096) over prompts of 256 tokens: a
+def _prefix_cache_app(card: str, n_prompts: int = PREFIX_PROMPTS,
+                      n_pages: int = PREFIX_PAGES):
+    """DashPrefixCache(num_pages=n_pages) over prompts of 256 tokens: a
     192-token prefix from 64 shared ones and 64 tokens of their own (16
     blocks, 12 shared), so admissions outrun the pages and LRU eviction
     runs. Every 50th prompt is matched again right after its admission and
@@ -2268,15 +2366,16 @@ def _prefix_cache_app(card: str, n_prompts: int = PREFIX_PROMPTS, n_pages: int =
 
 
 def _dedup_app(card: str):
-    """The dedup stream of examples/dedup_pipeline.py: 30 batches of 8 x 512
-    tokens, 25 % synthetic duplicates, through DedupFilter's Dash-LH."""
+    """The dedup stream of examples/dedup_pipeline.py: ``DEDUP_BATCHES``
+    batches of 8 x 512 tokens, 25 % synthetic duplicates, through
+    DedupFilter's Dash-LH."""
     from repro_torch.data import DedupFilter, PackedBatcher, PipelineConfig
     pc = PipelineConfig(vocab_size=32000, seq_len=512, batch_size=8, dup_fraction=0.25,
                         doc_len_min=32, doc_len_max=96)
     d = DedupFilter(device=DEVICE)
     b = PackedBatcher(pc, dedup=d)
     t0 = time.perf_counter()
-    for _ in range(30):
+    for _ in range(DEDUP_BATCHES):
         b.next_batch()
     s = time.perf_counter() - t0
     check(b.docs_skipped > 0 and d.unique_docs == b.docs_seen - b.docs_skipped,
@@ -2296,8 +2395,8 @@ def phase_baselines(report, card: str, n_keys: int = BASE_KEYS):
     unique uniform keys goes into Dash-EH, CCEH, Bucketized (each 32768
     segments at most) and level hashing (``max_log2=20``), with the launch
     counters set to 0 just before and read just after: insert rates, the
-    load-factor curve (after every 1/16), final load factors, 1M positive
-    and 1M negative searches, every key found with its value and no absent
+    load-factor curve (after every 1/16), final load factors, up to 1M
+    positive and 1M negative searches, every key found with its value and no absent
     key found. Then both read kernels on the Bucketized planes, Fig. 13's
     pair, ``level_scan`` at the load's batch shape on the full table, the
     prefix cache and the dedup stream."""
@@ -2444,6 +2543,174 @@ def phase_baselines(report, card: str, n_keys: int = BASE_KEYS):
     secs = time.perf_counter() - t_phase
     log(f"phase baselines: ok launches {launches} ({secs:.1f}s) [{card}]")
     return dict(rows=rows, fig13=(opt_ms, pess_ms), prefix=pc, dedup=dd, seconds=secs)
+
+
+#: phase 12, LM serving at full width: the model, the engine's geometry and
+#: the traffic (rounds of 4 requests: a shared system prompt + fresh tokens)
+LM_ARCH = "yi-6b"
+LM_CACHE_LEN, LM_PAGES, LM_BATCH = 1024, 1024, 4
+LM_SHARED, LM_FRESH, LM_NEW, LM_ROUNDS = 512, 128, 32, 3
+BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core rate (data sheet)
+
+
+def _timed(fn, times, after=None):
+    """``fn`` with each call's wall time (the card synced around it) added
+    to ``times``; ``after(result)`` sees every result."""
+    def call(*a, **kw):
+        sync()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        sync()
+        times.append(time.perf_counter() - t0)
+        if after is not None:
+            after(out)
+        return out
+    return call
+
+
+def phase_lm(report, card: str):
+    """The LM serving path at full width: ``LM_ARCH`` at its published
+    widths and depth, random weights drawn on the card from seed 0, served
+    by ``ServingEngine`` (the Dash prefix cache as the KV-page directory):
+    ``LM_ROUNDS`` rounds of ``LM_BATCH`` requests, each a shared
+    ``LM_SHARED``-token system prompt plus ``LM_FRESH`` fresh tokens,
+    decoding ``LM_NEW`` tokens. The launch counters are set to 0 just
+    before the rounds and read just after. Checks: every request after the
+    first reuses the whole system prompt and prefills only its own tokens,
+    no logit is non-finite, the prefix table's ``n_items`` equals its
+    recount, and decode agrees with prefill at full width (64 tokens
+    prefilled against the same 64 fed one by one through ``serve_step``:
+    the reference's tolerance, rtol 0.12 atol 0.6, and the same argmax).
+    Then prefill and decode-step times against their bounds and the busy
+    share of one traced decode step and one traced suffix prefill."""
+    from repro_torch.core import engine as dash_engine
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import fused, hashmix, probe
+    from repro_torch.models import decode_state_init, forward_prefill, init_params, serve_step
+    from repro_torch.serving import Request, ServingEngine
+
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    model = init_params(cfg, seed=0, device=DEVICE)
+    n_weights = sum(p.numel() for p in model.parameters())
+    check(n_weights == cfg.param_count() + (2 * cfg.n_layers + 1) * cfg.d_model,
+          f"{n_weights} weights for {cfg.param_count()} (+ the norms')")
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    eng = ServingEngine(cfg, model, cache_len=LM_CACHE_LEN, num_pages=LM_PAGES,
+                        batch_size=LM_BATCH)
+    pool_bytes = sum(t.numel() * t.element_size() for st in eng.pool.storage.values()
+                     for t in st.values())
+    kv_bytes = 2 * cfg.n_layers * LM_BATCH * cfg.n_kv_heads * LM_CACHE_LEN * cfg.hd * 2
+    sync()
+    init_s = time.perf_counter() - t_phase
+
+    bad = torch.zeros((), dtype=torch.int64, device=DEVICE)
+
+    def count_bad(out):
+        bad.add_((~torch.isfinite(out[0])).sum())
+    step_s, prefill_s, match_s, admit_s = [], [], [], []
+    eng._decode = _timed(eng._decode, step_s, count_bad)
+    eng._prefill = _timed(eng._prefill, prefill_s, count_bad)
+    eng.prefix.match_prefix = _timed(eng.prefix.match_prefix, match_s)
+    eng.prefix.admit = _timed(eng.prefix.admit, admit_s)
+
+    rng = np.random.default_rng(0)
+    shared = rng.integers(1, cfg.vocab_size, LM_SHARED)
+    done = []
+    for mod in (hashmix, probe, fused):
+        mod.LAUNCHES = 0
+    t0 = time.perf_counter()
+    for r in range(LM_ROUNDS):
+        reqs = [Request(LM_BATCH * r + i,
+                        np.concatenate([shared, rng.integers(1, cfg.vocab_size, LM_FRESH)]),
+                        max_new_tokens=LM_NEW) for i in range(LM_BATCH)]
+        done += eng.run(reqs)
+    sync()
+    serve_s = time.perf_counter() - t0
+    launches = {"bulk_hash": hashmix.LAUNCHES, "fingerprint_probe": probe.LAUNCHES,
+                "fused_probe": fused.LAUNCHES}
+    for kernel in ("bulk_hash", "fused_probe"):
+        check(launches[kernel] > 0 or DEVICE != "cuda",
+              f"{kernel} was not launched on the lm path")
+    for kernel, count in launches.items():
+        r = report.setdefault(kernel, {})
+        r.setdefault("paths", {})["lm"] = count
+        r["launches"] = sum(r["paths"].values())
+    counts = [(q.cached_tokens, q.prefilled_tokens) for q in done]
+    check(counts == [(0, LM_SHARED + LM_FRESH)] + [(LM_SHARED, LM_FRESH)] * (len(done) - 1),
+          f"cached/prefilled tokens {counts}")
+    check(all(len(q.generated) == LM_NEW for q in done), "a request was cut short")
+    check(int(bad) == 0, f"{int(bad)} non-finite logits")
+    table = eng.prefix.table
+    recount = int(dash_engine.recount_items(table.state))
+    check(table.n_items == recount, f"prefix table n_items {table.n_items} recount {recount}")
+
+    # ---- decode agrees with prefill at full width ----
+    toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, (1, 64)).astype(np.int32),
+                           device=DEVICE)
+    plog, _ = forward_prefill(model, cfg, {"tokens": toks}, LM_CACHE_LEN)
+    st = decode_state_init(cfg, 1, LM_CACHE_LEN, DEVICE)
+    for t in range(toks.shape[1]):
+        dlog, st = serve_step(model, cfg, st, {"token": toks[:, t]})
+    a, b = dlog[0].cpu().numpy(), plog[0, -1].cpu().numpy()
+    dp_err = float(np.abs(a - b).max())
+    check(np.isfinite(a).all() and np.allclose(a, b, rtol=0.12, atol=0.6),
+          f"decode and prefill logits differ by up to {dp_err}")
+    check(int(a.argmax()) == int(b.argmax()),
+          f"decode argmax {int(a.argmax())} != prefill argmax {int(b.argmax())}")
+    del st, plog, dlog
+
+    # ---- times against their bounds ----
+    cold = torch.as_tensor(done[0].prompt.astype(np.int32), device=DEVICE)[None]
+    suffix = cold[:, LM_SHARED:]
+    cold_ms = time_ms(lambda: forward_prefill(model, cfg, {"tokens": cold}, LM_CACHE_LEN),
+                      reps=5)
+    suffix_ms = time_ms(lambda: forward_prefill(model, cfg, {"tokens": suffix},
+                                                LM_CACHE_LEN), reps=10)
+    flop_bound = [2 * cfg.param_count() * n / BF16_OPS_PER_S * 1e3
+                  for n in (cold.shape[1], suffix.shape[1])]
+    byte_bound = (w_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    steps_ms = np.array(step_s) * 1e3
+    out = dict(weights=n_weights, w_gb=w_bytes / 1e9, pool_gb=pool_bytes / 1e9,
+               kv_gb=kv_bytes / 1e9, init_s=init_s, serve_s=serve_s,
+               cold_ms=cold_ms, suffix_ms=suffix_ms, flop_bound=flop_bound,
+               step_p50=float(np.percentile(steps_ms, 50)),
+               step_p99=float(np.percentile(steps_ms, 99)), steps=len(step_s),
+               byte_bound=byte_bound, hit_rate=eng.prefix.stats.hit_rate,
+               match_us=float(np.mean(match_s)) * 1e6, admit_ms=float(np.mean(admit_s)) * 1e3,
+               engine_prefill_ms=[float(x) * 1e3 for x in prefill_s],
+               launches=launches, dp_err=dp_err, saved=eng.flops_saved_tokens)
+    out["tok_s"] = LM_BATCH / (out["step_p50"] / 1e3)
+    log(f"  lm [{card}]: {cfg.name} {n_weights} weights ({out['w_gb']:.2f} GB), pool "
+        f"{out['pool_gb']:.2f} GB, decode state {out['kv_gb']:.2f} GB; made in {init_s:.1f}s; "
+        f"{len(done)} requests in {serve_s:.2f}s, hit rate {out['hit_rate']:.4f}, "
+        f"{out['saved']} prefill tokens saved; decode vs prefill at 64 tokens max abs "
+        f"{dp_err:.4f}, same argmax")
+
+    # ---- traces ----
+    if DEVICE == "cuda":
+        st = decode_state_init(cfg, LM_BATCH, LM_CACHE_LEN, DEVICE)
+        st["pos"].fill_(LM_SHARED + LM_FRESH)
+        tok = torch.ones(LM_BATCH, dtype=torch.int32, device=DEVICE)
+        serve_step(model, cfg, st, {"token": tok})
+        wall, busy, top, _ = busy_share(lambda: serve_step(model, cfg, st, {"token": tok}))
+        out["decode_trace"] = (wall, busy, top)
+        pwall, pbusy, ptop, _ = busy_share(
+            lambda: forward_prefill(model, cfg, {"tokens": suffix}, LM_CACHE_LEN))
+        out["prefill_trace"] = (pwall, pbusy, ptop)
+        del st
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        log(f"  trace lm [{card}] one decode step of {LM_BATCH} lanes: wall {wall * 1e3:.2f} ms, "
+            f"card busy {busy * 1e3:.2f} ms (busy share {busy / wall:.3f}); top: "
+            + "; ".join(f"{k} {v:.2f} ms" for k, v in top))
+        log(f"  trace lm [{card}] one {suffix.shape[1]}-token suffix prefill: wall "
+            f"{pwall * 1e3:.2f} ms, card busy {pbusy * 1e3:.2f} ms (busy share "
+            f"{pbusy / pwall:.3f}); top: " + "; ".join(f"{k} {v:.2f} ms" for k, v in ptop))
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase lm: ok launches {launches} ({out['seconds']:.1f}s) [{card}]")
+    return out
 
 
 def host_us_per_call(fn, calls: int = 1000) -> float:
@@ -3038,6 +3305,7 @@ def main(argv=None) -> int:
         del t
         phase_shrink(DashConfig(max_segments=32768, dir_depth_max=17))
         base = phase_baselines(report, card)
+        lm = phase_lm(report, card)
         n_dht, elapsed = DHT_KEYS, time.perf_counter() - t0
         if elapsed + DHT_FIXED_S + DHT_S_PER_MKEY > RUN_BUDGET_S:
             # the run's time limit cuts the DHT's key count first
@@ -3102,6 +3370,18 @@ def main(argv=None) -> int:
         f"{base['prefix']['match_us']:.1f} us per match_prefix; dedup {base['dedup']['skipped']} "
         f"of {base['dedup']['seen']} docs skipped, {base['dedup']['doc_us']:.1f} us per document; "
         f"phase {base['seconds']:.0f}s")
+    pt, dt_ = lm["prefill_trace"], lm["decode_trace"]
+    log(f"end to end lm [{card}]: {LM_ARCH} at full width ({lm['weights']} weights, "
+        f"{lm['w_gb']:.2f} GB; pool {lm['pool_gb']:.2f} GB; peak HBM {lm['peak_gb']:.2f} GB): "
+        f"prefill cold {LM_SHARED + LM_FRESH} tokens {lm['cold_ms']:.2f} ms (FLOP bound "
+        f"{lm['flop_bound'][0]:.2f} ms), {LM_FRESH}-token suffix after a hit "
+        f"{lm['suffix_ms']:.2f} ms (bound {lm['flop_bound'][1]:.2f} ms); decode step p50 "
+        f"{lm['step_p50']:.2f} ms p99 {lm['step_p99']:.2f} ms over {lm['steps']} steps of "
+        f"{LM_BATCH} lanes, {lm['tok_s']:.1f} tokens/s (byte bound {lm['byte_bound']:.2f} ms: "
+        f"weights + {lm['kv_gb']:.2f} GB of KV); hit rate {lm['hit_rate']:.4f}, "
+        f"{lm['match_us']:.1f} us per match_prefix, {lm['admit_ms']:.2f} ms per admit; busy "
+        f"share decode step {dt_[1] / dt_[0]:.3f}, suffix prefill {pt[1] / pt[0]:.3f}; phase "
+        f"{lm['seconds']:.0f}s")
     log(f"end to end dht [{card}]: {DHT_RANKS} ranks sharing the card through gloo (not a "
         f"multi-GPU scaling result): insert {dht['insert_mops']:.3f} Mops/s, search "
         f"{dht['search_mops']:.3f} Mops/s (the exchange {dht['exchange_share']:.3f} of the "

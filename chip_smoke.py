@@ -143,8 +143,8 @@ Phases, each printed on its own line and each able to fail the run:
      batch; the kernels held to their plain versions on shard-local
      batches; the same path on a one-rank NCCL group at 65,536 keys. Past
      1000 s of the run the DHT's key count is cut first (logged).
- 12. LM serving at full width (run before 11, so that the run's budget
-     can still cut the DHT's keys): yi-6b at its published widths and
+ 12. LM serving at full width (run before 11, with 12b, so that the run's
+     budget can still cut the DHT's keys): yi-6b at its published widths and
      depth (32 layers, d_model 4096, 32 heads, GQA 4, d_ff 11008, vocab
      64000, bf16: 6,060,769,280 weights, ~12.1 GB), random weights drawn
      on the card from a seed, served by ``ServingEngine`` with the Dash
@@ -162,14 +162,30 @@ Phases, each printed on its own line and each able to fail the run:
      ``match_prefix``, ms per ``admit``; the busy share of one traced
      decode step (with its top device ops) and one traced suffix prefill.
      Phase 3 also streams the LM engine on the card and on the CPU in
-     float32 (reduced yi-6b, and reduced h2o-danube-3-4b whose window
-     rolls the ring): tokens, counts, pages, the prefix cache's state and
-     planes equal, the page pool's K/V within 1e-4.
+     float32 (reduced yi-6b, h2o-danube-3-4b and mixtral-8x7b whose
+     windows roll their rings, recurrentgemma-9b and rwkv6-7b, whose
+     100-token prompts take RWKV's ragged last chunk): tokens, counts,
+     pages, the prefix cache's state and planes equal, every page-pool
+     field within 1e-4; and ``forward_prefill`` plus 3 ``serve_step``s of
+     the stub fronts (reduced llava-next-mistral-7b and musicgen-large):
+     logits and states within 1e-4.
+ 12b. the other block kinds, served like yi-6b (2 rounds, 8 requests
+     each), one model at a time, each freed before the next:
+     recurrentgemma-9b at its published width and depth (38 layers: 26
+     RG-LRU with a 2-layer tail, 12 local MQA layers of head_dim 256;
+     10.44B weights, ~20.9 GB), rwkv6-7b (32 layers of 64 heads x 64;
+     7.52B, ~15.0 GB; 128 pages: a page holds a 34.1 MB state snapshot)
+     and mixtral-8x7b at its published width on 16 of its 32 layers
+     (23.48B, ~47.0 GB: its 93.4 GB do not fit one card). The same checks
+     and lines as phase 12, plus the weight count against the model's own
+     leaves (``leaf_count``) and peak HBM; decode agrees with prefill at
+     64 tokens in bf16 at full width, for mixtral in f32 on 2 of its
+     layers (bf16 flips near-tied top-2 routes between the two paths).
 
-Each kernel's ``launches`` in the JSON line is the sum over the eight
+Each kernel's ``launches`` in the JSON line is the sum over the eleven
 paths driven with counters (the EH main path, the frontend, the durable
 path, the LH path, the baselines' load, the 4-rank DHT summed over its
-ranks, the one-rank NCCL DHT and the LM serving path). The durable line also prints
+ranks, the one-rank NCCL DHT and the four LM serving paths). The durable line also prints
 the bytes that really crossed to the host a flush. The last three
 lines are the card line, one JSON object describing every kernel, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -627,6 +643,10 @@ def _dedup_stream(device, seed: int):
     return d.table, out
 
 
+#: the other block kinds' LM card-vs-CPU streams: (arch, seed) through the
+#: engine, and through forward_prefill / serve_step for the stub fronts
+LM_ENGINE_STREAMS = (("mixtral-8x7b", 23), ("recurrentgemma-9b", 24), ("rwkv6-7b", 25))
+LM_FRONT_STREAMS = (("llava-next-mistral-7b", 26), ("musicgen-large", 27))
 #: the LM card-vs-CPU streams: float answers (the page pool's K/V) within
 #: this f32 tolerance (the CPU tests' summation-order tolerance); every
 #: integer answer exact
@@ -637,10 +657,12 @@ def _lm_stream(arch: str, device, seed: int):
     """Two rounds of 4 requests (64 shared tokens + 36 fresh, 5 new tokens)
     through ``ServingEngine`` over the reduced ``arch`` in float32, weights
     drawn on the CPU from ``seed``: 16 pages, so the second round evicts.
-    h2o-danube-3-4b's window (64) makes its cold prefill take the band with
-    a ragged length and roll its ring. Every request's tokens and counts,
-    every ``match_prefix`` and ``admit`` answer, the cache's host state and
-    stats, then the page pool's K/V (float, within ``LM_STREAM_TOL``)."""
+    The 100-token cold prefill takes the window band with a ragged length
+    and rolls the ring of h2o-danube-3-4b and mixtral-8x7b (window 64) and
+    of recurrentgemma-9b's local layers, and rwkv6-7b's last, 36-token
+    chunk. Every request's tokens and counts, every ``match_prefix`` and
+    ``admit`` answer, the cache's host state, every page-pool field (float,
+    within ``LM_STREAM_TOL``), then the stats."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
@@ -670,10 +692,48 @@ def _lm_stream(arch: str, device, seed: int):
         eng.run(reqs)
         out += [np.array(q.generated + [q.cached_tokens, q.prefilled_tokens]) for q in reqs]
     c = eng.prefix
-    out += [np.array(c.free, np.int64), np.array(sorted(c.lru.items()), np.int64).ravel(),
-            np.array(list(vars(c.stats).values()) + [eng.flops_saved_tokens])]
-    out += [eng.pool.storage[0][f].cpu().numpy() for f in ("k", "v")]
+    out += [np.array(c.free, np.int64), np.array(sorted(c.lru.items()), np.int64).ravel()]
+    out += [t.cpu().numpy() for leaves in eng.pool.storage.values() for t in leaves.values()]
+    out.append(np.array(list(vars(c.stats).values()) + [eng.flops_saved_tokens]))
     return c.table, out
+
+
+def _front_stream(arch: str, device, seed: int):
+    """The stub fronts, which the engine refuses: ``forward_prefill`` of 2
+    lanes (llava: 16 patch embeddings + 48 tokens; musicgen: 64 frame
+    embeddings) and 3 ``serve_step``s of the reduced ``arch`` in float32,
+    weights drawn on the CPU from ``seed``: every logit and the final state's
+    leaves (float, within ``LM_STREAM_TOL``) and positions."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward_prefill, init_params, serve_step
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
+    cfg = dataclasses.replace(get_config(arch, reduced=True), dtype="float32")
+    model = init_params(cfg, seed, "cpu").to(device)
+    rng = np.random.default_rng(seed)
+
+    def embeds(n):
+        return torch.as_tensor(rng.normal(0, 1, (2, n, cfg.d_model)).astype(np.float32),
+                               device=device)
+
+    def tokens(*shape):
+        return torch.as_tensor(rng.integers(1, cfg.vocab_size, shape).astype(np.int32),
+                               device=device)
+    if cfg.family == "audio":
+        batch = {"frame_embeds": embeds(64)}
+    else:
+        batch = {"patch_embeds": embeds(cfg.num_patches),
+                 "tokens": tokens(2, 64 - cfg.num_patches)}
+    logits, st = forward_prefill(model, cfg, batch, 128)
+    out = [logits.cpu().numpy()]
+    for _ in range(3):
+        inputs = ({"frame_embeds": embeds(1)} if cfg.family == "audio"
+                  else {"token": tokens(2)})
+        logits, st = serve_step(model, cfg, st, inputs)
+        out.append(logits.cpu().numpy())
+    out += [t.cpu().numpy() for k, leaves in st.items() if k != "pos" for t in leaves.values()]
+    out.append(st["pos"].cpu().numpy())
+    return None, out
 
 
 def _fixed_recorder():
@@ -829,6 +889,10 @@ def _stream_table():
         "dedup": lambda dev: _dedup_stream(dev, 20),
         "lm yi-6b": lambda dev: _lm_stream("yi-6b", dev, 21),
         "lm h2o-danube-3-4b": lambda dev: _lm_stream("h2o-danube-3-4b", dev, 22),
+        **{f"lm {arch}": (lambda dev, arch=arch, seed=seed: _lm_stream(arch, dev, seed))
+           for arch, seed in LM_ENGINE_STREAMS},
+        **{f"lm {arch}": (lambda dev, arch=arch, seed=seed: _front_stream(arch, dev, seed))
+           for arch, seed in LM_FRONT_STREAMS},
     }
     return streams, set(durable)
 
@@ -1038,11 +1102,15 @@ def phase_cuda_vs_cpu(cpu_child):
     seen, skipped, unique = facts["dedup"][1][-1]
     check(skipped > 0 and unique == seen - skipped, f"dedup stream: {seen} {skipped} {unique}")
     lm_facts = []
-    for name in ("lm yi-6b", "lm h2o-danube-3-4b"):
-        _, hits, _, _, evictions, saved = facts[name][1][-3]
+    for name in ["lm yi-6b", "lm h2o-danube-3-4b"] + [f"lm {a}" for a, _ in LM_ENGINE_STREAMS]:
+        _, hits, _, _, evictions, saved = facts[name][1][-1]
         check(evictions > 0 and saved == 7 * 64, f"{name}: {evictions} evictions, "
               f"{saved} prefill tokens saved")
         lm_facts.append(f"{name[3:]} {hits} hit blocks, {evictions} evictions")
+    for arch, _ in LM_FRONT_STREAMS:
+        check(facts[f"lm {arch}"][1][-1].tolist() == [67, 67], f"lm {arch}: positions "
+              f"{facts[f'lm {arch}'][1][-1]}")
+        lm_facts.append(f"{arch} prefill + 3 steps")
     baseline_facts = (
         f"level hashing k {lvl[0]} after {lvl[1]} rehashes; CCEH "
         f"{facts['cceh'][0].n_segments} segments, load factor "
@@ -2550,6 +2618,22 @@ def phase_baselines(report, card: str, n_keys: int = BASE_KEYS):
 LM_ARCH = "yi-6b"
 LM_CACHE_LEN, LM_PAGES, LM_BATCH = 1024, 1024, 4
 LM_SHARED, LM_FRESH, LM_NEW, LM_ROUNDS = 512, 128, 32, 3
+#: phase 12b, the other block kinds at full width, served like yi-6b in
+#: LM_KIND_ROUNDS rounds: (arch, layers kept or None for all, pages).
+#: rwkv6-7b's page holds a 34.1 MB state snapshot (1024 pages would be 34.9
+#: GB; 8 requests admit 96); mixtral-8x7b's 46.7B bf16 weights (93.4 GB) do
+#: not fit one 80 GB card, so it keeps 16 of its 32 layers at full width
+LM_KINDS = (("recurrentgemma-9b", None, 1024), ("rwkv6-7b", None, 128),
+            ("mixtral-8x7b", 16, 1024))
+LM_KIND_ROUNDS = 2
+#: phases 12 and 12b together, measured on NVIDIA H100 80GB HBM3, 700.00 W
+#: (12.1 + 16.1 + 11.8 + 9.5 s): past the run's budget yi-6b loses a round
+LM_PHASES_S = 50.0
+#: mixtral's decode-vs-prefill check runs in f32 on this many of its layers:
+#: in bf16 the two paths round differently and flip near-tied top-2 routes
+LM_F32_LAYERS = 2
+#: decode agrees with prefill at this many tokens
+LM_DP_TOKENS = 64
 BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core rate (data sheet)
 
 
@@ -2568,41 +2652,121 @@ def _timed(fn, times, after=None):
     return call
 
 
-def phase_lm(report, card: str):
-    """The LM serving path at full width: ``LM_ARCH`` at its published
-    widths and depth, random weights drawn on the card from seed 0, served
-    by ``ServingEngine`` (the Dash prefix cache as the KV-page directory):
-    ``LM_ROUNDS`` rounds of ``LM_BATCH`` requests, each a shared
-    ``LM_SHARED``-token system prompt plus ``LM_FRESH`` fresh tokens,
-    decoding ``LM_NEW`` tokens. The launch counters are set to 0 just
-    before the rounds and read just after. Checks: every request after the
-    first reuses the whole system prompt and prefills only its own tokens,
-    no logit is non-finite, the prefix table's ``n_items`` equals its
-    recount, and decode agrees with prefill at full width (64 tokens
-    prefilled against the same 64 fed one by one through ``serve_step``:
-    the reference's tolerance, rtol 0.12 atol 0.6, and the same argmax).
-    Then prefill and decode-step times against their bounds and the busy
-    share of one traced decode step and one traced suffix prefill."""
+def leaf_count(cfg) -> int:
+    """Weights of a model by the shapes the reference's ``init_params``
+    gives each kind's leaves (``param_count()`` is not this count: it gives
+    rwkv a 3-matrix channel mix where the block holds 2, and leaves out
+    RG-LRU's conv and lam and every norm)."""
+    d, ff, hd, H, G = cfg.d_model, cfg.d_ff, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    r = cfg.d_rnn or d
+    attn = d * H * hd * 2 + d * G * hd * 2
+    per = {"dense": attn + 3 * d * ff, "local": attn + 3 * d * ff,
+           "moe": attn + d * cfg.n_experts + 3 * cfg.n_experts * d * ff,
+           "rglru": 3 * d * r + cfg.conv_width * r + 2 * r * r + r + 3 * d * ff,
+           "rwkv": 6 * d * d + 4 * d + 2 * d * ff}
+    kinds = list(cfg.pattern) * cfg.n_blocks + list(cfg.tail)
+    total = sum(per[k] + 2 * d for k in kinds)                    # + the block's norms
+    embed = 0 if cfg.family == "audio" else cfg.vocab_size * d
+    return total + embed + d * cfg.vocab_size + d
+
+
+def _matmul_weights(model, cfg) -> float:
+    """Weights a token multiplies in a forward pass: every matrix but the
+    embedding table (a gather), the MoE expert stacks at top_k of n_experts."""
+    total = 0.0
+    for name, p in model.named_parameters():
+        if p.dim() < 2 or name.startswith("embed."):
+            continue
+        expert = ".moe.w_" in name
+        total += p.numel() * (cfg.top_k / cfg.n_experts if expert else 1.0)
+    return total
+
+
+def _step_weight_bytes(model, cfg) -> float:
+    """Weight bytes one decode step reads: all but the embedding table (a
+    step gathers 4 rows of it); of each MoE layer's experts only those its
+    last call (the traced step) routed a lane to."""
+    total = 0.0
+    for name, p in model.named_parameters():
+        if name.startswith("embed."):
+            continue
+        total += p.numel() * p.element_size()
+    for _, _, blk in model.layers():
+        moe = getattr(blk, "moe", None)
+        if moe is not None and moe.routed is not None:
+            unused = cfg.n_experts - int(torch.unique(moe.routed).numel())
+            total -= unused * sum(w[0].numel() * w.element_size()
+                                  for w in (moe.w_gate, moe.w_up, moe.w_down))
+    return total
+
+
+def _decode_vs_prefill(model, cfg, toks):
+    """(max abs error, largest share of the tolerance used) of prefill
+    logits at the last of ``toks`` against the logits after feeding them
+    one by one; fails the phase outside the reference's tolerance (rtol
+    0.12, atol 0.6) or on another argmax."""
+    from repro_torch.models import decode_state_init, forward_prefill, serve_step
+    plog, _ = forward_prefill(model, cfg, {"tokens": toks}, LM_CACHE_LEN)
+    st = decode_state_init(cfg, 1, LM_CACHE_LEN, DEVICE)
+    for t in range(toks.shape[1]):
+        dlog, st = serve_step(model, cfg, st, {"token": toks[:, t]})
+    a, b = dlog[0].float().cpu().numpy(), plog[0, -1].cpu().numpy()
+    err = float(np.abs(a - b).max())
+    share = float((np.abs(a - b) / (0.6 + 0.12 * np.abs(b))).max())
+    check(np.isfinite(a).all() and np.allclose(a, b, rtol=0.12, atol=0.6),
+          f"{cfg.name}: decode and prefill logits differ by up to {err}")
+    check(int(a.argmax()) == int(b.argmax()),
+          f"{cfg.name}: decode argmax {int(a.argmax())} != prefill argmax {int(b.argmax())}")
+    return err, share
+
+
+def phase_lm(report, card: str, arch: str = LM_ARCH, rounds: int = LM_ROUNDS,
+             n_layers=None, pages: int = LM_PAGES):
+    """The LM serving path at full width: ``arch`` at its published widths
+    (and depth, unless ``n_layers`` keeps fewer layers), random weights
+    drawn on the card from seed 0, served by ``ServingEngine`` (the Dash
+    prefix cache as the KV-page directory, ``pages`` pages): ``rounds``
+    rounds of ``LM_BATCH`` requests, each a shared ``LM_SHARED``-token
+    system prompt plus ``LM_FRESH`` fresh tokens, decoding ``LM_NEW``
+    tokens. The launch counters are set to 0 just before the rounds and
+    read just after. Checks: every request after the first reuses the whole
+    system prompt and prefills only its own tokens, no logit is
+    non-finite, the prefix table's ``n_items`` equals its recount, the
+    weight count is the model's own leaves' (``leaf_count``), and decode
+    agrees with prefill at ``LM_DP_TOKENS`` tokens (the reference's
+    tolerance, rtol 0.12 atol 0.6, and the same argmax): in bf16 at full
+    width, for MoE in f32 on ``LM_F32_LAYERS`` layers. Then prefill and
+    decode-step times against their bounds and the busy share of one traced
+    decode step (4 lanes after a batched prefill of the last round's
+    prompts) and one traced suffix prefill. The model is freed before the
+    phase returns."""
+    import dataclasses
+    import gc
     from repro_torch.core import engine as dash_engine
     from repro_torch.configs import get_config
     from repro_torch.kernels import fused, hashmix, probe
-    from repro_torch.models import decode_state_init, forward_prefill, init_params, serve_step
+    from repro_torch.models import forward_prefill, init_params, serve_step
     from repro_torch.serving import Request, ServingEngine
 
     t_phase = time.perf_counter()
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
+    path = "lm" if arch == LM_ARCH else f"lm {arch}"
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     if DEVICE == "cuda":
         torch.cuda.reset_peak_memory_stats()
     model = init_params(cfg, seed=0, device=DEVICE)
     n_weights = sum(p.numel() for p in model.parameters())
-    check(n_weights == cfg.param_count() + (2 * cfg.n_layers + 1) * cfg.d_model,
-          f"{n_weights} weights for {cfg.param_count()} (+ the norms')")
+    check(n_weights == leaf_count(cfg), f"{arch}: {n_weights} weights for the leaves' "
+          f"{leaf_count(cfg)}")
+    if set(cfg.pattern) == {"dense"}:
+        check(n_weights == cfg.param_count() + (2 * cfg.n_layers + 1) * cfg.d_model,
+              f"{n_weights} weights for {cfg.param_count()} (+ the norms')")
     w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    eng = ServingEngine(cfg, model, cache_len=LM_CACHE_LEN, num_pages=LM_PAGES,
+    eng = ServingEngine(cfg, model, cache_len=LM_CACHE_LEN, num_pages=pages,
                         batch_size=LM_BATCH)
     pool_bytes = sum(t.numel() * t.element_size() for st in eng.pool.storage.values()
                      for t in st.values())
-    kv_bytes = 2 * cfg.n_layers * LM_BATCH * cfg.n_kv_heads * LM_CACHE_LEN * cfg.hd * 2
     sync()
     init_s = time.perf_counter() - t_phase
 
@@ -2622,7 +2786,7 @@ def phase_lm(report, card: str):
     for mod in (hashmix, probe, fused):
         mod.LAUNCHES = 0
     t0 = time.perf_counter()
-    for r in range(LM_ROUNDS):
+    for r in range(rounds):
         reqs = [Request(LM_BATCH * r + i,
                         np.concatenate([shared, rng.integers(1, cfg.vocab_size, LM_FRESH)]),
                         max_new_tokens=LM_NEW) for i in range(LM_BATCH)]
@@ -2633,34 +2797,25 @@ def phase_lm(report, card: str):
                 "fused_probe": fused.LAUNCHES}
     for kernel in ("bulk_hash", "fused_probe"):
         check(launches[kernel] > 0 or DEVICE != "cuda",
-              f"{kernel} was not launched on the lm path")
+              f"{kernel} was not launched on the {path} path")
     for kernel, count in launches.items():
         r = report.setdefault(kernel, {})
-        r.setdefault("paths", {})["lm"] = count
+        r.setdefault("paths", {})[path] = count
         r["launches"] = sum(r["paths"].values())
     counts = [(q.cached_tokens, q.prefilled_tokens) for q in done]
     check(counts == [(0, LM_SHARED + LM_FRESH)] + [(LM_SHARED, LM_FRESH)] * (len(done) - 1),
-          f"cached/prefilled tokens {counts}")
-    check(all(len(q.generated) == LM_NEW for q in done), "a request was cut short")
-    check(int(bad) == 0, f"{int(bad)} non-finite logits")
+          f"{arch}: cached/prefilled tokens {counts}")
+    check(all(len(q.generated) == LM_NEW for q in done), f"{arch}: a request was cut short")
+    check(int(bad) == 0, f"{arch}: {int(bad)} non-finite logits")
     table = eng.prefix.table
     recount = int(dash_engine.recount_items(table.state))
-    check(table.n_items == recount, f"prefix table n_items {table.n_items} recount {recount}")
+    check(table.n_items == recount, f"{arch}: prefix table n_items {table.n_items} recount "
+          f"{recount}")
 
-    # ---- decode agrees with prefill at full width ----
-    toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, (1, 64)).astype(np.int32),
-                           device=DEVICE)
-    plog, _ = forward_prefill(model, cfg, {"tokens": toks}, LM_CACHE_LEN)
-    st = decode_state_init(cfg, 1, LM_CACHE_LEN, DEVICE)
-    for t in range(toks.shape[1]):
-        dlog, st = serve_step(model, cfg, st, {"token": toks[:, t]})
-    a, b = dlog[0].cpu().numpy(), plog[0, -1].cpu().numpy()
-    dp_err = float(np.abs(a - b).max())
-    check(np.isfinite(a).all() and np.allclose(a, b, rtol=0.12, atol=0.6),
-          f"decode and prefill logits differ by up to {dp_err}")
-    check(int(a.argmax()) == int(b.argmax()),
-          f"decode argmax {int(a.argmax())} != prefill argmax {int(b.argmax())}")
-    del st, plog, dlog
+    # ---- decode agrees with prefill at full width (MoE: f32, see below) ----
+    dp_toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, (1, LM_DP_TOKENS))
+                              .astype(np.int32), device=DEVICE)
+    dp = None if "moe" in cfg.pattern else _decode_vs_prefill(model, cfg, dp_toks)
 
     # ---- times against their bounds ----
     cold = torch.as_tensor(done[0].prompt.astype(np.int32), device=DEVICE)[None]
@@ -2669,48 +2824,100 @@ def phase_lm(report, card: str):
                       reps=5)
     suffix_ms = time_ms(lambda: forward_prefill(model, cfg, {"tokens": suffix},
                                                 LM_CACHE_LEN), reps=10)
-    flop_bound = [2 * cfg.param_count() * n / BF16_OPS_PER_S * 1e3
-                  for n in (cold.shape[1], suffix.shape[1])]
-    byte_bound = (w_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    mm = _matmul_weights(model, cfg)
+    flop_bound = [2 * mm * n / BF16_OPS_PER_S * 1e3 for n in (cold.shape[1], suffix.shape[1])]
+    # a step of 4 lanes after a batched prefill of the last round's prompts
+    prompts = torch.as_tensor(np.stack([q.prompt for q in done[-LM_BATCH:]]).astype(np.int32),
+                              device=DEVICE)
+    logits, st = forward_prefill(model, cfg, {"tokens": prompts}, LM_CACHE_LEN)
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    del logits
+    state_bytes = sum(t.numel() * t.element_size() for k, leaves in st.items() if k != "pos"
+                      for t in leaves.values())
+    rec_bytes = sum(t.numel() * t.element_size() for k, leaves in st.items() if k != "pos"
+                    for f, t in leaves.items() if f not in ("k", "v"))
+    serve_step(model, cfg, st, {"token": tok})
+    out = {}
+    if DEVICE == "cuda":
+        wall, busy, top, _ = busy_share(lambda: serve_step(model, cfg, st, {"token": tok}))
+        out["decode_trace"] = (wall, busy, top)
+    else:
+        serve_step(model, cfg, st, {"token": tok})
+    # the traced step's bytes: the weights it read (MoE: the experts its
+    # lanes routed to), the state read, the recurrent state written
+    step_w_bytes = _step_weight_bytes(model, cfg)
+    byte_bound = (step_w_bytes + state_bytes + rec_bytes) / HBM_BYTES_PER_S * 1e3
+    del st
+    if DEVICE == "cuda":
+        pwall, pbusy, ptop, _ = busy_share(
+            lambda: forward_prefill(model, cfg, {"tokens": suffix}, LM_CACHE_LEN))
+        out["prefill_trace"] = (pwall, pbusy, ptop)
     steps_ms = np.array(step_s) * 1e3
-    out = dict(weights=n_weights, w_gb=w_bytes / 1e9, pool_gb=pool_bytes / 1e9,
-               kv_gb=kv_bytes / 1e9, init_s=init_s, serve_s=serve_s,
-               cold_ms=cold_ms, suffix_ms=suffix_ms, flop_bound=flop_bound,
-               step_p50=float(np.percentile(steps_ms, 50)),
+    out.update(arch=arch, name=cfg.name, layers=cfg.n_layers, rounds=rounds, pages=pages,
+               weights=n_weights, w_gb=w_bytes / 1e9, pool_gb=pool_bytes / 1e9,
+               state_gb=state_bytes / 1e9, step_w_gb=step_w_bytes / 1e9,
+               init_s=init_s, serve_s=serve_s, cold_ms=cold_ms, suffix_ms=suffix_ms,
+               flop_bound=flop_bound, step_p50=float(np.percentile(steps_ms, 50)),
                step_p99=float(np.percentile(steps_ms, 99)), steps=len(step_s),
                byte_bound=byte_bound, hit_rate=eng.prefix.stats.hit_rate,
                match_us=float(np.mean(match_s)) * 1e6, admit_ms=float(np.mean(admit_s)) * 1e3,
                engine_prefill_ms=[float(x) * 1e3 for x in prefill_s],
-               launches=launches, dp_err=dp_err, saved=eng.flops_saved_tokens)
+               launches=launches, saved=eng.flops_saved_tokens, requests=len(done))
     out["tok_s"] = LM_BATCH / (out["step_p50"] / 1e3)
-    log(f"  lm [{card}]: {cfg.name} {n_weights} weights ({out['w_gb']:.2f} GB), pool "
-        f"{out['pool_gb']:.2f} GB, decode state {out['kv_gb']:.2f} GB; made in {init_s:.1f}s; "
-        f"{len(done)} requests in {serve_s:.2f}s, hit rate {out['hit_rate']:.4f}, "
-        f"{out['saved']} prefill tokens saved; decode vs prefill at 64 tokens max abs "
-        f"{dp_err:.4f}, same argmax")
-
-    # ---- traces ----
+    del model, eng, done
+    gc.collect()
     if DEVICE == "cuda":
-        st = decode_state_init(cfg, LM_BATCH, LM_CACHE_LEN, DEVICE)
-        st["pos"].fill_(LM_SHARED + LM_FRESH)
-        tok = torch.ones(LM_BATCH, dtype=torch.int32, device=DEVICE)
-        serve_step(model, cfg, st, {"token": tok})
-        wall, busy, top, _ = busy_share(lambda: serve_step(model, cfg, st, {"token": tok}))
-        out["decode_trace"] = (wall, busy, top)
-        pwall, pbusy, ptop, _ = busy_share(
-            lambda: forward_prefill(model, cfg, {"tokens": suffix}, LM_CACHE_LEN))
-        out["prefill_trace"] = (pwall, pbusy, ptop)
-        del st
+        torch.cuda.empty_cache()
+    if dp is None:
+        # MoE: decode vs prefill in f32 on LM_F32_LAYERS layers at full width
+        small = dataclasses.replace(cfg, n_layers=LM_F32_LAYERS, dtype="float32")
+        model = init_params(small, seed=1, device=DEVICE)
+        dp = _decode_vs_prefill(model, small, dp_toks)
+        del model
+        gc.collect()
+        if DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    out["dp_err"], out["dp_share"] = dp
+    dp_what = (f"f32 on {LM_F32_LAYERS} layers" if "moe" in cfg.pattern
+               else f"{cfg.dtype} at full width")
+    cut = f" (cut to {cfg.n_layers} layers)" if n_layers is not None else ""
+    log(f"  {path} [{card}]: {cfg.name}{cut} {n_weights} weights ({out['w_gb']:.2f} GB), pool "
+        f"{out['pool_gb']:.2f} GB ({pages} pages), decode state {out['state_gb']:.3f} GB; "
+        f"made in {init_s:.1f}s; {out['requests']} requests in {serve_s:.2f}s, hit rate "
+        f"{out['hit_rate']:.4f}, {out['saved']} prefill tokens saved; decode vs prefill at "
+        f"{LM_DP_TOKENS} tokens ({dp_what}) max abs {dp[0]:.4f} ({dp[1]:.3f} of the "
+        f"tolerance), same argmax")
+    if DEVICE == "cuda":
         out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        log(f"  trace lm [{card}] one decode step of {LM_BATCH} lanes: wall {wall * 1e3:.2f} ms, "
-            f"card busy {busy * 1e3:.2f} ms (busy share {busy / wall:.3f}); top: "
-            + "; ".join(f"{k} {v:.2f} ms" for k, v in top))
-        log(f"  trace lm [{card}] one {suffix.shape[1]}-token suffix prefill: wall "
+        (wall, busy, top), (pwall, pbusy, ptop) = out["decode_trace"], out["prefill_trace"]
+        log(f"  trace {path} [{card}] one decode step of {LM_BATCH} lanes: wall "
+            f"{wall * 1e3:.2f} ms, card busy {busy * 1e3:.2f} ms (busy share "
+            f"{busy / wall:.3f}); top: " + "; ".join(f"{k} {v:.2f} ms" for k, v in top))
+        log(f"  trace {path} [{card}] one {suffix.shape[1]}-token suffix prefill: wall "
             f"{pwall * 1e3:.2f} ms, card busy {pbusy * 1e3:.2f} ms (busy share "
             f"{pbusy / pwall:.3f}); top: " + "; ".join(f"{k} {v:.2f} ms" for k, v in ptop))
     out["seconds"] = time.perf_counter() - t_phase
-    log(f"phase lm: ok launches {launches} ({out['seconds']:.1f}s) [{card}]")
+    log(f"phase {path}: ok launches {launches} ({out['seconds']:.1f}s) [{card}]")
     return out
+
+
+def lm_line(lm, card: str) -> str:
+    """The end-to-end line of one LM serving phase."""
+    pt, dt_ = lm["prefill_trace"], lm["decode_trace"]
+    cut = f", {lm['layers']} layers" if lm["arch"] == "mixtral-8x7b" else ""
+    return (f"end to end {'lm' if lm['arch'] == LM_ARCH else 'lm ' + lm['arch']} [{card}]: "
+            f"{lm['arch']} at full width{cut} ({lm['weights']} weights, {lm['w_gb']:.2f} GB; "
+            f"pool {lm['pool_gb']:.2f} GB; decode state {lm['state_gb']:.3f} GB; peak HBM "
+            f"{lm['peak_gb']:.2f} GB): {lm['requests']} requests in {lm['rounds']} rounds; "
+            f"prefill cold {LM_SHARED + LM_FRESH} tokens {lm['cold_ms']:.2f} ms (FLOP bound "
+            f"{lm['flop_bound'][0]:.2f} ms), {LM_FRESH}-token suffix after a hit "
+            f"{lm['suffix_ms']:.2f} ms (bound {lm['flop_bound'][1]:.2f} ms); decode step p50 "
+            f"{lm['step_p50']:.2f} ms p99 {lm['step_p99']:.2f} ms over {lm['steps']} steps of "
+            f"{LM_BATCH} lanes, {lm['tok_s']:.1f} tokens/s (byte bound {lm['byte_bound']:.2f} "
+            f"ms: {lm['step_w_gb']:.2f} GB of weights read + the state); hit rate "
+            f"{lm['hit_rate']:.4f}, {lm['match_us']:.1f} us per match_prefix, "
+            f"{lm['admit_ms']:.2f} ms per admit; busy share decode step {dt_[1] / dt_[0]:.3f}, "
+            f"suffix prefill {pt[1] / pt[0]:.3f}; phase {lm['seconds']:.0f}s")
 
 
 def host_us_per_call(fn, calls: int = 1000) -> float:
@@ -3305,10 +3512,18 @@ def main(argv=None) -> int:
         del t
         phase_shrink(DashConfig(max_segments=32768, dir_depth_max=17))
         base = phase_baselines(report, card)
-        lm = phase_lm(report, card)
+        rounds, elapsed = LM_ROUNDS, time.perf_counter() - t0
+        if elapsed + LM_PHASES_S + DHT_FIXED_S + DHT_S_PER_MKEY > RUN_BUDGET_S:
+            # the run's time limit cuts yi-6b's third round first, then the DHT's keys
+            rounds = 2
+            log(f"lm cut: {LM_ARCH} {rounds} rounds of {LM_ROUNDS} ({elapsed:.0f}s of the run "
+                f"spent)")
+        lm = [phase_lm(report, card, LM_ARCH, rounds)]
+        for arch, n_layers, pages in LM_KINDS:
+            lm.append(phase_lm(report, card, arch, LM_KIND_ROUNDS, n_layers, pages))
         n_dht, elapsed = DHT_KEYS, time.perf_counter() - t0
         if elapsed + DHT_FIXED_S + DHT_S_PER_MKEY > RUN_BUDGET_S:
-            # the run's time limit cuts the DHT's key count first
+            # then the run's time limit cuts the DHT's key count
             left = max(RUN_BUDGET_S - elapsed - DHT_FIXED_S, 0.0) / DHT_S_PER_MKEY
             n_dht = max(DHT_BATCH, int(DHT_KEYS * left) // DHT_BATCH * DHT_BATCH)
             log(f"dht cut: {n_dht} keys of {DHT_KEYS} ({elapsed:.0f}s of the run spent)")
@@ -3370,18 +3585,8 @@ def main(argv=None) -> int:
         f"{base['prefix']['match_us']:.1f} us per match_prefix; dedup {base['dedup']['skipped']} "
         f"of {base['dedup']['seen']} docs skipped, {base['dedup']['doc_us']:.1f} us per document; "
         f"phase {base['seconds']:.0f}s")
-    pt, dt_ = lm["prefill_trace"], lm["decode_trace"]
-    log(f"end to end lm [{card}]: {LM_ARCH} at full width ({lm['weights']} weights, "
-        f"{lm['w_gb']:.2f} GB; pool {lm['pool_gb']:.2f} GB; peak HBM {lm['peak_gb']:.2f} GB): "
-        f"prefill cold {LM_SHARED + LM_FRESH} tokens {lm['cold_ms']:.2f} ms (FLOP bound "
-        f"{lm['flop_bound'][0]:.2f} ms), {LM_FRESH}-token suffix after a hit "
-        f"{lm['suffix_ms']:.2f} ms (bound {lm['flop_bound'][1]:.2f} ms); decode step p50 "
-        f"{lm['step_p50']:.2f} ms p99 {lm['step_p99']:.2f} ms over {lm['steps']} steps of "
-        f"{LM_BATCH} lanes, {lm['tok_s']:.1f} tokens/s (byte bound {lm['byte_bound']:.2f} ms: "
-        f"weights + {lm['kv_gb']:.2f} GB of KV); hit rate {lm['hit_rate']:.4f}, "
-        f"{lm['match_us']:.1f} us per match_prefix, {lm['admit_ms']:.2f} ms per admit; busy "
-        f"share decode step {dt_[1] / dt_[0]:.3f}, suffix prefill {pt[1] / pt[0]:.3f}; phase "
-        f"{lm['seconds']:.0f}s")
+    for one in lm:
+        log(lm_line(one, card))
     log(f"end to end dht [{card}]: {DHT_RANKS} ranks sharing the card through gloo (not a "
         f"multi-GPU scaling result): insert {dht['insert_mops']:.3f} Mops/s, search "
         f"{dht['search_mops']:.3f} Mops/s (the exchange {dht['exchange_share']:.3f} of the "

@@ -6,7 +6,9 @@ serving KV-page directory).
     PYTHONPATH=src python examples/serve_prefix_cache_torch.py --device cpu
 
 Twin of ``examples/serve_prefix_cache.py``; runs on the card unless
-``--device`` names another.
+``--device`` names another. ``--arch`` takes every token architecture
+(``mixtral-8x7b``, ``recurrentgemma-9b``, ``rwkv6-7b``, ...); the recurrent
+kinds keep state snapshots in the page pool instead of K/V.
 """
 import argparse
 

@@ -79,27 +79,43 @@ def level_state_to_numpy(state: LevelState) -> dict:
     return out
 
 
-def _leaf(a) -> torch.Tensor:
-    """One f32 leaf of the reference's parameter tree, as a CPU tensor."""
-    return torch.from_numpy(np.array(a, np.float32))
+def _load(module: torch.nn.Module, tree: dict, index, loaded: set, prefix: str = ""):
+    """Copy the reference's leaves under ``tree`` into the parameters of the
+    same names under ``module`` (slice ``index`` of each leaf when the tree
+    is stacked). ``copy_`` casts f32 to the parameter's dtype, rounding to
+    nearest even like the reference's cast at every use; f32 parameters
+    keep the leaf's bits."""
+    for name, sub in tree.items():
+        if isinstance(sub, dict):
+            _load(getattr(module, name), sub, index, loaded, f"{prefix}{name}.")
+            continue
+        a = np.array(sub if index is None else sub[index], np.float32)
+        param = getattr(module, name)
+        if tuple(param.shape) != a.shape:
+            raise ValueError(f"{prefix}{name}: shape {a.shape} for {tuple(param.shape)}")
+        param.copy_(torch.from_numpy(a))
+        loaded.add(id(param))
 
 
 def model_params_from_jax(cfg: ModelConfig, params_np: dict, device) -> Transformer:
     """The port's ``Transformer`` on ``device``, in ``cfg``'s compute dtype,
-    from the reference's parameter tree as numpy arrays (``blocks_<pi>``
-    leaves stacked on a leading layer axis). The f32 weights are cast once
-    (round to nearest even, the reference's cast at every use); RMSNorm
-    scales stay f32."""
+    from the reference's parameter tree as numpy arrays: ``blocks_<pi>``
+    leaves stacked on a leading layer axis, ``tail_<ti>`` trees without one,
+    no ``embed`` for the audio front. The reference's f32 leaves that it
+    uses in f32 (RMSNorm scales, RG-LRU's ``lam``, RWKV's decay, bonus and
+    mix vectors) stay f32; the rest are cast once. Every parameter of the
+    model must be loaded."""
     model = Transformer(cfg, device)
-    model.embed.table.copy_(_leaf(params_np["embed"]["table"]))
-    model.norm_f.scale.copy_(_leaf(params_np["norm_f"]["scale"]))
-    model.lm_head.w.copy_(_leaf(params_np["lm_head"]["w"]))
-    for key, index, blk in model.layers():
-        tree = params_np[key]
-        for norm in ("norm1", "norm2"):
-            getattr(blk, norm).scale.copy_(_leaf(tree[norm]["scale"][index]))
-        for name in ("wq", "wk", "wv", "wo"):
-            getattr(blk.attn, name).copy_(_leaf(tree["attn"][name][index]))
-        for name in ("w_gate", "w_up", "w_down"):
-            getattr(blk.mlp, name).copy_(_leaf(tree["mlp"][name][index]))
+    loaded: set = set()
+    for key, tree in params_np.items():
+        if key.startswith("blocks_"):
+            for b, blk in enumerate(model.blocks[int(key[7:])]):
+                _load(blk, tree, b, loaded, f"{key}[{b}].")
+        elif key.startswith("tail_"):
+            _load(model.tails[int(key[5:])], tree, None, loaded, f"{key}.")
+        else:
+            _load(getattr(model, key), tree, None, loaded, f"{key}.")
+    missing = [n for n, p in model.named_parameters() if id(p) not in loaded]
+    if missing:
+        raise ValueError(f"the reference's tree has no leaf for {missing[:8]}")
     return model

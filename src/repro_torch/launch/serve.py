@@ -1,7 +1,10 @@
 """Serving driver: ``python -m repro_torch.launch.serve --arch <id>`` —
 batched requests through the Dash prefix-cache engine (reduced config), on
 the card unless ``--device`` names another. Twin of
-``python -m repro.launch.serve``."""
+``python -m repro.launch.serve``. Every token architecture serves here
+(dense, SWA, MoE, RG-LRU hybrid, RWKV6; ``--arch rwkv6-7b`` too at its
+default 96-token prompts, where the reference's RWKV chunking raises); the
+vlm and audio stub fronts are refused, as in the reference."""
 from __future__ import annotations
 
 import argparse

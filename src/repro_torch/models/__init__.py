@@ -1,8 +1,8 @@
-"""Model zoo of the port: the decoder blocks and stack that serve the dense
-architectures (the other block kinds wait for ROADMAP entry 15b)."""
-from . import layers, transformer
+"""Model zoo of the port: the decoder blocks (dense, local, MoE, RG-LRU,
+RWKV6) and the stack that serves every architecture of the registry."""
+from . import layers, moe, rglru, rwkv6, transformer
 from .transformer import (ModelConfig, Transformer, decode_state_init,
                           forward_prefill, init_params, serve_step)
 
-__all__ = ["layers", "transformer", "ModelConfig", "Transformer", "init_params",
-           "forward_prefill", "decode_state_init", "serve_step"]
+__all__ = ["layers", "moe", "rglru", "rwkv6", "transformer", "ModelConfig", "Transformer",
+           "init_params", "forward_prefill", "decode_state_init", "serve_step"]

@@ -1,22 +1,31 @@
 """Decoder stack for serving: prefill that builds the decode state, and the
 one-token serve step — the port of ``repro.models.transformer``.
 
-The stack is declared by ``pattern``, a repeating tuple of block kinds;
-``n_layers = len(pattern) * n_blocks + len(tail)``. This slice serves the
-``"dense"`` kind (with or without ``sliding_window``), stacks without a
-tail:
+The stack is declared by ``pattern``, a repeating tuple of block kinds:
 
     dense:  [RMSNorm -> GQA attention -> +] [RMSNorm -> SwiGLU -> +]
+    local:  same, attention windowed to cfg.local_window
+    moe:    attention block + top-k MoE FFN
+    rglru:  RG-LRU recurrent block + SwiGLU
+    rwkv:   RWKV6 time mix + RWKV6 channel mix
 
-The other kinds (``moe``, ``rglru``, ``rwkv``, ``local``), tail layers and
-the ``vlm`` / ``audio`` fronts raise ``NotImplementedError`` (ROADMAP Queue
-1, entry 15b).
+``n_layers = len(pattern) * n_blocks + len(tail)``: the ``n_layers mod
+len(pattern)`` tail layers follow the stacked blocks, e.g.
+recurrentgemma-9b's 38 = (rglru, rglru, local) x 12 + (rglru, rglru).
+
+Fronts: ``vlm`` prepends (B, P, d) patch embeddings to the token
+embeddings (positions run over the whole); ``audio`` takes (B, S, d) frame
+embeddings and has no embedding table. Both fronts are stubs, as in the
+reference: the embeddings come in precomputed.
 
 The decode state keeps the reference's layout, so the page pool translates
-line for line and states compare leaf by leaf: ``state["blocks_<pi>"]`` holds
-``k``/``v`` of shape (n_blocks, B, G, C, hd) for pattern position ``pi``,
-and ``state["pos"]`` the (B,) int32 position counter. ``serve_step`` writes the
-new token's K/V into that state in place.
+line for line and states compare leaf by leaf. ``state["blocks_<pi>"]``
+holds, with a leading n_blocks axis, ``k``/``v`` (B, G, C, hd) for the
+attention kinds (C the kind's ring, ``ring_len``), ``h`` (B, d_rnn) f32 and
+``conv`` (B, W-1, d_rnn) for ``rglru``, ``shift_tm``/``shift_cm`` (B, 1, d)
+and ``wkv`` (B, H, 64, 64) f32 for ``rwkv``; ``state["tail_<ti>"]`` the same
+leaves without the layer axis; ``state["pos"]`` the (B,) int32 position
+counter. ``serve_step`` writes into those tensors in place.
 """
 from __future__ import annotations
 
@@ -28,15 +37,13 @@ from torch import nn
 
 from repro_torch.core.layout import resolve_device
 from . import layers as L
+from . import moe as M
+from . import rglru as R
+from . import rwkv6 as W
 
-#: block kinds this slice serves
-SERVED_KINDS = ("dense",)
+ATTENTION_KINDS = ("dense", "local", "moe")
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1, entry 15b)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,6 +98,9 @@ class ModelConfig:
             sliding_window=self.local_window if local else self.sliding_window,
             q_chunk=self.q_chunk, kv_chunk=self.kv_chunk)
 
+    def moe_cfg(self) -> M.MoEConfig:
+        return M.MoEConfig(self.n_experts, self.top_k, self.capacity_factor)
+
     def param_count(self) -> int:
         """Analytic total parameters (for 6ND roofline accounting)."""
         d, ff, hd = self.d_model, self.d_ff, self.hd
@@ -118,111 +128,15 @@ class ModelConfig:
         return self.param_count() - n_moe * inactive
 
 
-def ring_len(cfg: ModelConfig, cache_len: int) -> int:
-    """Ring size C of a dense block's KV cache: the context, or the window."""
+def ring_len(cfg: ModelConfig, cache_len: int, kind: str = "dense") -> int:
+    """Ring size C of an attention block's KV cache: the context, or the
+    window (``local_window`` for ``local`` blocks, ``sliding_window`` for
+    the others)."""
+    if kind == "local":
+        return min(cache_len, cfg.local_window)
     if cfg.sliding_window is None:
         return cache_len
     return min(cache_len, cfg.sliding_window)
-
-
-def check_served(cfg: ModelConfig) -> None:
-    """Raise for what this slice does not serve."""
-    if cfg.family in ("vlm", "audio"):
-        raise _not_ported(f"the {cfg.family} front")
-    for kind in cfg.pattern:
-        if kind not in SERVED_KINDS:
-            raise _not_ported(f"block kind {kind!r}")
-    if cfg.tail:
-        raise _not_ported("a stack with tail layers")
-
-
-# ---------------------------------------------------------------------------
-# the model
-# ---------------------------------------------------------------------------
-
-class DenseBlock(nn.Module):
-    def __init__(self, cfg: ModelConfig, device):
-        super().__init__()
-        dt = cfg.compute_dtype
-        self.norm1 = L.RMSNorm(cfg.d_model, cfg.norm_eps, device)
-        self.norm2 = L.RMSNorm(cfg.d_model, cfg.norm_eps, device)
-        self.attn = L.Attention(cfg.attn_cfg(False), dt, device)
-        self.mlp = L.SwiGLU(cfg.d_model, cfg.d_ff, dt, device)
-
-    def init(self, generator):
-        self.attn.init(generator)
-        self.mlp.init(generator)
-
-    def prefill(self, x, positions):
-        """(x, (k, v)): the block's output and its roped K/V (B, G, S, hd)."""
-        a, kv = self.attn(self.norm1(x), positions, return_kv=True)
-        x = x + a
-        return x + self.mlp(self.norm2(x)), kv
-
-    def decode(self, x, cache_k, cache_v, pos):
-        a, _, _ = self.attn.decode(self.norm1(x), cache_k, cache_v, pos)
-        x = x + a
-        return x + self.mlp(self.norm2(x))
-
-
-class Transformer(nn.Module):
-    """The decoder's weights on one device, in the compute dtype (RMSNorm
-    scales in f32). ``blocks[pi][b]`` is block ``b`` of pattern position
-    ``pi`` (the reference's stacked ``blocks_<pi>`` leaves, index ``b``).
-    Made uninitialised: ``init_params``
-    draws the weights, ``interop.model_params_from_jax`` loads them."""
-
-    def __init__(self, cfg: ModelConfig, device=None):
-        super().__init__()
-        check_served(cfg)
-        device = resolve_device(device)
-        dt = cfg.compute_dtype
-        self.cfg = cfg
-        self.embed = L.Embed(cfg.vocab_size, cfg.d_model, dt, device)
-        self.blocks = nn.ModuleList(
-            nn.ModuleList(DenseBlock(cfg, device) for _ in range(cfg.n_blocks))
-            for _ in cfg.pattern)
-        self.norm_f = L.RMSNorm(cfg.d_model, cfg.norm_eps, device)
-        self.lm_head = L.Unembed(cfg.d_model, cfg.vocab_size, dt, device)
-
-    @property
-    def device(self) -> torch.device:
-        return self.lm_head.w.device
-
-    def layers(self):
-        """(state key, index, block) in the reference's layer order: every
-        pattern position of block 0, then of block 1, ..."""
-        for b in range(self.cfg.n_blocks):
-            for pi in range(len(self.cfg.pattern)):
-                yield f"blocks_{pi}", b, self.blocks[pi][b]
-
-
-def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Transformer:
-    """A ``Transformer`` on ``device`` (the card unless named) with the
-    reference's initialisation: truncated normals (±2σ) at its scales, drawn
-    from a generator on that device seeded with ``seed``; norms at 1. The
-    draws are not the reference's (another generator): parity tests load
-    the reference's weights through ``interop.model_params_from_jax``."""
-    model = Transformer(cfg, device)
-    gen = torch.Generator(device=model.device).manual_seed(seed)
-    model.embed.init(gen)
-    for _, _, blk in model.layers():
-        blk.init(gen)
-    model.lm_head.init(gen)
-    return model
-
-
-# ---------------------------------------------------------------------------
-# prefill
-# ---------------------------------------------------------------------------
-
-def inputs_to_embeddings(params: Transformer, cfg: ModelConfig, batch):
-    """(B, S, d) token embeddings + (B, S) int32 positions."""
-    check_served(cfg)
-    x = params.embed(batch["tokens"])
-    B, S = x.shape[0], x.shape[1]
-    positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
-    return x, positions
 
 
 def ring(k: torch.Tensor, C: int) -> torch.Tensor:
@@ -236,20 +150,202 @@ def ring(k: torch.Tensor, C: int) -> torch.Tensor:
     return torch.roll(last, S % C, dims=2)
 
 
+# ---------------------------------------------------------------------------
+# blocks: prefill emits the block's decode-state entry, decode updates it in
+# place
+# ---------------------------------------------------------------------------
+
+class AttnBlock(nn.Module):
+    """``dense``, ``local`` (the window is ``local_window``) and ``moe`` (an
+    MoE FFN in place of the SwiGLU)."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, device):
+        super().__init__()
+        dt = cfg.compute_dtype
+        self.cfg, self.kind = cfg, kind
+        self.norm1 = L.RMSNorm(cfg.d_model, cfg.norm_eps, device)
+        self.norm2 = L.RMSNorm(cfg.d_model, cfg.norm_eps, device)
+        self.attn = L.Attention(cfg.attn_cfg(kind == "local"), dt, device)
+        if kind == "moe":
+            self.moe = M.MoE(cfg.d_model, cfg.d_ff, cfg.moe_cfg(), dt, device)
+        else:
+            self.mlp = L.SwiGLU(cfg.d_model, cfg.d_ff, dt, device)
+
+    def init(self, generator):
+        self.attn.init(generator)
+        (self.moe if self.kind == "moe" else self.mlp).init(generator)
+
+    def ffn(self, h):
+        return self.moe(h)[0] if self.kind == "moe" else self.mlp(h)
+
+    def prefill(self, x, positions, cache_len: int):
+        a, (k, v) = self.attn(self.norm1(x), positions, return_kv=True)
+        x = x + a
+        C = ring_len(self.cfg, cache_len, self.kind)
+        return x + self.ffn(self.norm2(x)), {"k": ring(k, C), "v": ring(v, C)}
+
+    def decode(self, x, st, pos):
+        a, _, _ = self.attn.decode(self.norm1(x), st["k"], st["v"], pos)
+        x = x + a
+        return x + self.ffn(self.norm2(x))
+
+
+class RGLRUBlock(nn.Module):
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        dt = cfg.compute_dtype
+        self.norm1 = L.RMSNorm(cfg.d_model, cfg.norm_eps, device)
+        self.norm2 = L.RMSNorm(cfg.d_model, cfg.norm_eps, device)
+        self.rnn = R.RGLRU(cfg.d_model, cfg.d_rnn or cfg.d_model, cfg.conv_width, dt, device)
+        self.mlp = L.SwiGLU(cfg.d_model, cfg.d_ff, dt, device)
+
+    def init(self, generator):
+        self.rnn.init(generator)
+        self.mlp.init(generator)
+
+    def prefill(self, x, positions, cache_len: int):
+        y, (h, conv) = self.rnn(self.norm1(x), return_state=True)
+        x = x + y
+        return x + self.mlp(self.norm2(x)), {"h": h, "conv": conv}
+
+    def decode(self, x, st, pos):
+        y, h, conv = self.rnn.decode(self.norm1(x), st["h"], st["conv"])
+        st["h"].copy_(h)
+        st["conv"].copy_(conv)
+        x = x + y
+        return x + self.mlp(self.norm2(x))
+
+
+class RWKVBlock(nn.Module):
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        self.norm1 = L.RMSNorm(cfg.d_model, cfg.norm_eps, device)
+        self.norm2 = L.RMSNorm(cfg.d_model, cfg.norm_eps, device)
+        self.tm = W.RWKV6(cfg.d_model, cfg.d_ff, cfg.compute_dtype, device)
+
+    def init(self, generator):
+        self.tm.init(generator)
+
+    def prefill(self, x, positions, cache_len: int):
+        y, (shift, wkv) = W.rwkv6_time_mix(self.tm, self.norm1(x))
+        x = x + y
+        y, shift_cm = W.rwkv6_channel_mix(self.tm, self.norm2(x))
+        return x + y, {"shift_tm": shift, "wkv": wkv, "shift_cm": shift_cm}
+
+    def decode(self, x, st, pos):
+        y, (shift, wkv) = W.rwkv6_time_mix_decode(self.tm, self.norm1(x), st["shift_tm"],
+                                                  st["wkv"])
+        x = x + y
+        y, shift_cm = W.rwkv6_channel_mix(self.tm, self.norm2(x), st["shift_cm"])
+        for f, t in (("shift_tm", shift), ("wkv", wkv), ("shift_cm", shift_cm)):
+            st[f].copy_(t)
+        return x + y
+
+
+def make_block(cfg: ModelConfig, kind: str, device) -> nn.Module:
+    if kind in ATTENTION_KINDS:
+        return AttnBlock(cfg, kind, device)
+    if kind == "rglru":
+        return RGLRUBlock(cfg, device)
+    if kind == "rwkv":
+        return RWKVBlock(cfg, device)
+    raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# the model
+# ---------------------------------------------------------------------------
+
+class Transformer(nn.Module):
+    """The decoder's weights on one device, in the compute dtype (RMSNorm
+    scales and the recurrent kinds' f32 leaves in f32). ``blocks[pi][b]`` is
+    block ``b`` of pattern position ``pi`` (the reference's stacked
+    ``blocks_<pi>`` leaves, index ``b``); ``tails[ti]`` is ``tail_<ti>``;
+    ``embed`` is None for the audio front. Made uninitialised:
+    ``init_params`` draws the weights, ``interop.model_params_from_jax``
+    loads them."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        dt = cfg.compute_dtype
+        self.cfg = cfg
+        self.embed = (None if cfg.family == "audio"
+                      else L.Embed(cfg.vocab_size, cfg.d_model, dt, device))
+        self.blocks = nn.ModuleList(
+            nn.ModuleList(make_block(cfg, kind, device) for _ in range(cfg.n_blocks))
+            for kind in cfg.pattern)
+        self.tails = nn.ModuleList(make_block(cfg, kind, device) for kind in cfg.tail)
+        self.norm_f = L.RMSNorm(cfg.d_model, cfg.norm_eps, device)
+        self.lm_head = L.Unembed(cfg.d_model, cfg.vocab_size, dt, device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.lm_head.w.device
+
+    def layers(self):
+        """(state key, index, block) in the reference's layer order: every
+        pattern position of block 0, then of block 1, ..., then the tail
+        layers (index None: their state has no layer axis)."""
+        for b in range(self.cfg.n_blocks):
+            for pi in range(len(self.cfg.pattern)):
+                yield f"blocks_{pi}", b, self.blocks[pi][b]
+        for ti, blk in enumerate(self.tails):
+            yield f"tail_{ti}", None, blk
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Transformer:
+    """A ``Transformer`` on ``device`` (the card unless named) with the
+    reference's initialisation: truncated normals (±2σ) and uniforms at its
+    scales, drawn from a generator on that device seeded with ``seed``;
+    norms at 1. The draws are not the reference's (another generator):
+    parity tests load the reference's weights through
+    ``interop.model_params_from_jax``."""
+    model = Transformer(cfg, device)
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    if model.embed is not None:
+        model.embed.init(gen)
+    for _, _, blk in model.layers():
+        blk.init(gen)
+    model.lm_head.init(gen)
+    return model
+
+
+# ---------------------------------------------------------------------------
+# prefill
+# ---------------------------------------------------------------------------
+
+def inputs_to_embeddings(params: Transformer, cfg: ModelConfig, batch):
+    """Map the modality front (stubbed for vlm/audio) to (B, S, d) + (B, S)
+    int32 positions."""
+    dt = cfg.compute_dtype
+    if cfg.family == "audio":
+        x = batch["frame_embeds"].to(dt)
+    elif cfg.family == "vlm":
+        x = torch.cat([batch["patch_embeds"].to(dt), params.embed(batch["tokens"])], dim=1)
+    else:
+        x = params.embed(batch["tokens"])
+    B, S = x.shape[0], x.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+    return x, positions
+
+
 def forward_prefill(params: Transformer, cfg: ModelConfig, batch, cache_len: int):
     """Full-prompt forward that also builds the decode state (KV ring caches
-    at their slots). Returns (logits f32 (B, S, vocab), decode_state)."""
+    at their slots, final recurrent states). Returns (logits f32 (B, S,
+    vocab), decode_state)."""
     x, positions = inputs_to_embeddings(params, cfg, batch)
     B, S = x.shape[0], x.shape[1]
-    C = ring_len(cfg, cache_len)
-    kv = {}
-    for key, _, blk in params.layers():
-        x, (k, v) = blk.prefill(x, positions)
-        kv.setdefault(key, []).append((ring(k, C), ring(v, C)))
     state = {"pos": torch.full((B,), S, dtype=torch.int32, device=x.device)}
-    for key, entries in kv.items():
-        state[key] = {"k": torch.stack([e[0] for e in entries]),
-                      "v": torch.stack([e[1] for e in entries])}
+    stacked = {}
+    for key, index, blk in params.layers():
+        x, st = blk.prefill(x, positions, cache_len)
+        if index is None:
+            state[key] = st
+        else:
+            stacked.setdefault(key, []).append(st)
+    for key, entries in stacked.items():
+        state[key] = {f: torch.stack([e[f] for e in entries]) for f in entries[0]}
     logits = params.lm_head(params.norm_f(x)).float()
     return logits, state
 
@@ -258,29 +354,50 @@ def forward_prefill(params: Transformer, cfg: ModelConfig, batch, cache_len: int
 # decode (serve_step)
 # ---------------------------------------------------------------------------
 
+def _block_state_init(cfg: ModelConfig, kind: str, batch: int, cache_len: int, device):
+    """One block's decode state (zeros): the reference's leaves, shapes and
+    dtypes."""
+    dt = cfg.compute_dtype
+    if kind in ATTENTION_KINDS:
+        shape = (batch, cfg.n_kv_heads, ring_len(cfg, cache_len, kind), cfg.hd)
+        return {"k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device)}
+    if kind == "rglru":
+        h, conv = R.rglru_state_init(batch, cfg.d_rnn or cfg.d_model, cfg.conv_width, dt,
+                                     device)
+        return {"h": h, "conv": conv}
+    if kind == "rwkv":
+        shift, wkv = W.rwkv6_state_init(batch, cfg.d_model, dt, device)
+        return {"shift_tm": shift, "wkv": wkv, "shift_cm": torch.zeros_like(shift)}
+    raise ValueError(kind)
+
+
 def decode_state_init(cfg: ModelConfig, batch: int, cache_len: int, device=None):
-    """Per-layer KV ring caches (zeros) + the position counter, on ``device``
+    """Per-layer decode state (zeros) + the position counter, on ``device``
     (the card unless named)."""
-    check_served(cfg)
     device = resolve_device(device)
-    dt, G, hd, C = cfg.compute_dtype, cfg.n_kv_heads, cfg.hd, ring_len(cfg, cache_len)
-    state = {}
-    for pi in range(len(cfg.pattern)):
-        shape = (cfg.n_blocks, batch, G, C, hd)
-        state[f"blocks_{pi}"] = {"k": torch.zeros(shape, dtype=dt, device=device),
-                                 "v": torch.zeros(shape, dtype=dt, device=device)}
+
+    def zeros(kind, lead):
+        return {f: torch.zeros(lead + t.shape, dtype=t.dtype, device=device)
+                for f, t in _block_state_init(cfg, kind, batch, cache_len, "meta").items()}
+    state = {f"blocks_{pi}": zeros(kind, (cfg.n_blocks,)) for pi, kind in enumerate(cfg.pattern)}
+    state.update({f"tail_{ti}": zeros(kind, ()) for ti, kind in enumerate(cfg.tail)})
     state["pos"] = torch.zeros((batch,), dtype=torch.int32, device=device)
     return state
 
 
 def serve_step(params: Transformer, cfg: ModelConfig, state, inputs):
-    """One decode step: a token per lane in, f32 logits (B, vocab) and the
-    state out. The K/V tensors of ``state`` are updated in place and carried
-    into the returned state; ``pos`` is a new tensor, one higher."""
-    x = params.embed(inputs["token"][:, None])
+    """One decode step: a token (or, for audio, a (B, 1, d) frame embedding)
+    per lane in, f32 logits (B, vocab) and the state out. The tensors of
+    ``state`` are updated in place and carried into the returned state;
+    ``pos`` is a new tensor, one higher."""
+    if cfg.family == "audio":
+        x = inputs["frame_embeds"].to(cfg.compute_dtype)
+    else:
+        x = params.embed(inputs["token"][:, None])
     pos = state["pos"]
-    new_state = dict(state, pos=pos + 1)
-    for key, b, blk in params.layers():
-        x = blk.decode(x, state[key]["k"][b], state[key]["v"][b], pos)
+    for key, index, blk in params.layers():
+        st = state[key] if index is None else {f: t[index] for f, t in state[key].items()}
+        x = blk.decode(x, st, pos)
     logits = params.lm_head(params.norm_f(x)).float()[:, 0]
-    return logits, new_state
+    return logits, dict(state, pos=pos + 1)

@@ -6,14 +6,18 @@ Request flow (``ServingEngine.run``):
      finds the longest cached token-block chain; those pages are gathered
      into the request's decode-state lane, and prefill runs only on the
      uncached suffix — the compute saved is counted per request.
-  2. The suffix prefill's K/V is admitted back into the pool under chained
-     block hashes (Dash inserts).
+  2. The suffix prefill's K/V (or, for the recurrent kinds, its final
+     state snapshot) is admitted back into the pool under chained block
+     hashes (Dash inserts).
   3. Greedy decode proceeds with the shared ``serve_step``.
 
 The engine mirrors the reference step for step, its quirk included: after
-a prefix hit the suffix's own prefill state (positions 0..) replaces the
-gathered lane whole, while ``pos`` is set to the prompt's length, so a
-decode after a hit is not what a full prefill would give (ROADMAP Queue 3).
+a prefix hit the suffix's own prefill state (positions 0..; for the
+recurrent kinds the state from a zero start) replaces the gathered lane
+whole, while ``pos`` is set to the prompt's length, so a decode after a hit
+is not what a full prefill would give (ROADMAP Queue 3). The vlm and audio
+fronts are refused, as in the reference: they are served through
+``forward_prefill`` and ``serve_step``.
 
 Optimistic-concurrency composition (paper Sec. 4.4 at system level):
 lookups run against a pinned *snapshot* of the table while writers build
@@ -53,6 +57,10 @@ class ServingEngine:
 
     def __init__(self, cfg: ModelConfig, params: Transformer, *, cache_len: int = 512,
                  num_pages: int = 1024, batch_size: int = 4):
+        if cfg.family in ("vlm", "audio"):
+            raise ValueError(f"ServingEngine serves token-in architectures; the {cfg.family} "
+                             f"front ({cfg.name}) is served through forward_prefill and "
+                             f"serve_step")
         self.cfg = cfg
         self.params = params
         self.device = params.device
@@ -96,11 +104,14 @@ class ServingEngine:
                                             device=self.device)[None, :]}
             logits, pstate = self._prefill(self.params, sb)
 
-            # the suffix's state replaces lane bi whole (the reference's
-            # merge: exact only when n_cached == 0)
+            # the suffix's state replaces lane bi whole, every leaf of every
+            # layer (the reference's merge: exact only when n_cached == 0)
             for pi in range(len(self.cfg.pattern)):
                 for f, t in pstate[f"blocks_{pi}"].items():
                     state[f"blocks_{pi}"][f][:, bi] = t[:, 0]
+            for ti in range(len(self.cfg.tail)):
+                for f, t in pstate[f"tail_{ti}"].items():
+                    state[f"tail_{ti}"][f][bi] = t[0]
             state["pos"][bi] = len(req.prompt)
 
             # 3) admit the new blocks back into the pool; the pre-admission

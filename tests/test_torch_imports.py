@@ -32,7 +32,8 @@ def test_port_files_found():
             "prefix_cache.py", "dedup.py", "pipeline.py", "chip_smoke.py",
             "quickstart_torch.py", "dedup_pipeline_torch.py", "dht.py",
             "forensics_torch.py", "distributed_dht_torch.py", "transformer.py",
-            "layers.py", "kv_cache.py", "serve.py", "serve_prefix_cache_torch.py"} <= names
+            "layers.py", "kv_cache.py", "serve.py", "serve_prefix_cache_torch.py",
+            "moe.py", "rglru.py", "rwkv6.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -29,9 +29,8 @@ from repro.models.transformer import serve_step as ref_serve_step
 from repro_torch import interop
 from repro_torch.configs import ARCH_IDS, all_cells, get_config
 from repro_torch.models import layers as TL
-from repro_torch.models.transformer import (ModelConfig, Transformer, decode_state_init,
+from repro_torch.models.transformer import (ModelConfig, decode_state_init,
                                             forward_prefill, init_params, serve_step)
-from repro_torch.serving.kv_cache import PagePool, PagePoolConfig
 
 F32 = dict(rtol=1e-4, atol=1e-4)
 BF16 = dict(rtol=0.0625, atol=0.125)
@@ -101,19 +100,6 @@ def test_configs_match_reference():
                 rc.param_count(), rc.active_param_count(), rc.hd, rc.n_blocks, rc.tail)
     assert all_cells() == ref_all_cells()
     assert get_config("yi-6b").param_count() == 6_060_769_280
-
-
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "recurrentgemma-9b", "rwkv6-7b",
-                                  "llava-next-mistral-7b", "musicgen-large"])
-def test_unported_kinds_raise(arch):
-    cfg = get_config(arch, reduced=True)
-    with pytest.raises(NotImplementedError, match="15b"):
-        Transformer(cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="15b"):
-        decode_state_init(cfg, 1, 64, "cpu")
-    if {"rglru", "rwkv"} & set(cfg.pattern):            # recurrent page snapshots
-        with pytest.raises(NotImplementedError, match="15b"):
-            PagePool(PagePoolConfig(4, cfg), device="cpu")
 
 
 def test_entry_points_default_to_the_card():
@@ -269,12 +255,18 @@ def test_prefill_and_serve_steps(arch, dtype, S, cache_len):
         same_state(rs, ps, dtype, f"step {step}")
 
 
-@pytest.mark.parametrize("arch", ["yi-6b", "h2o-danube-3-4b"])
+@pytest.mark.parametrize("arch", ["yi-6b", "h2o-danube-3-4b", "recurrentgemma-9b", "rwkv6-7b",
+                                  "mixtral-8x7b"])
 def test_decode_matches_prefill(arch):
     """The port alone, in bf16: prefill logits at the last position equal
     the logits after feeding the same tokens one by one (the reference's own
-    check and tolerance, tests/test_archs_smoke.py)."""
+    check and tolerance, tests/test_archs_smoke.py, with its list of
+    archs). mixtral runs in f32: in bf16 the two paths round the residual
+    stream differently and can flip a near-tied top-2 routing, which is why
+    the reference's check leaves MoE out."""
     cfg = get_config(arch, reduced=True)
+    if "moe" in cfg.pattern:
+        cfg = dataclasses.replace(cfg, dtype="float32")
     model = init_params(cfg, seed=1, device="cpu")
     T = 24
     toks = np.random.default_rng(0).integers(1, cfg.vocab_size, (1, T)).astype(np.int32)

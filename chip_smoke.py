@@ -56,7 +56,9 @@ Phases, each printed on its own line and each able to fail the run:
      every answer against the ground truth until every segment has
      recovered, then a second crash recovered eagerly by ``recover_all``;
   7b. the serving frontend at full width: a fresh DashEH in the main
-     path's geometry loaded with 4M keys (cut from 8M by the time limit),
+     path's geometry, started at 1024 segments (depth 10: the main path
+     drives the growth from one segment), loaded with 4M keys (cut from 8M
+     by the time limit),
      then a split storm of 131,072 fresh inserts (cut from 262,144 by the
      time limit), one read of a loaded key
      per insert, an update every third and 128 YCSB-A ops (zipfian 0.99)
@@ -97,8 +99,9 @@ Phases, each printed on its own line and each able to fail the run:
      active, and both read kernels are held to their plain versions on
      the filled LH table, on lanes and ticks that reach that segment;
      ``fingerprint_probe`` timed at 1M LH lanes;
-  9. shrink: a DashEH in the main path's pool geometry loaded with 0.25M
-     keys (cut from 0.5M by the time limit), 0.2M deleted, ``shrink()``,
+  9. shrink: a DashEH in the main path's pool geometry, started at 128
+     segments (depth 7), loaded with 0.25M keys (cut from 0.5M by the
+     time limit), 0.2M deleted, ``shrink()``,
      the survivors and the deleted keys checked, then 0.125M fresh keys
      inserted: the watermark may grow only
      once the freed ids are used up;
@@ -118,8 +121,9 @@ Phases, each printed on its own line and each able to fail the run:
      ``level_scan`` exact and timed at the load's 4096-key batch on the
      loaded table; the prefix cache (400 prompts of 256 tokens from 64
      shared prefixes, cut from 2000 by the time limit; 2048 pages, cut from
-     4096, evictions) and the dedup stream of
-     ``examples/dedup_pipeline.py`` (15 of its 30 batches). Phase 3 also
+     4096, evictions; halved past the run's budget) and the dedup stream of
+     ``examples/dedup_pipeline.py`` (15 of its 30 batches; 8 past the
+     budget). Phase 3 also
      streams level hashing
      (through 6 rehashes), CCEH, Bucketized, the pessimistic search (EH
      and LH), the prefix cache and the dedup filter on the card and on the
@@ -142,7 +146,9 @@ Phases, each printed on its own line and each able to fail the run:
      wall time, read sojourn p50/p99, the busy share of a traced read
      batch; the kernels held to their plain versions on shard-local
      batches; the same path on a one-rank NCCL group at 65,536 keys. Past
-     1000 s of the run the DHT's key count is cut first (logged).
+     the run's budget (1050 s, ``RUN_BUDGET_S``) the baselines' apps are
+     halved, then yi-6b's third round goes, then the DHT's key count is
+     cut (each logged).
  12. LM serving at full width (run before 11, with 12b, so that the run's
      budget can still cut the DHT's keys): yi-6b at its published widths and
      depth (32 layers, d_model 4096, 32 heads, GQA 4, d_ff 11008, vocab
@@ -181,11 +187,42 @@ Phases, each printed on its own line and each able to fail the run:
      leaves (``leaf_count``) and peak HBM; decode agrees with prefill at
      64 tokens in bf16 at full width, for mixtral in f32 on 2 of its
      layers (bf16 flips near-tied top-2 routes between the two paths).
+ 13. training at full width (run after 12b, before 11): yi-6b at its
+     published widths on 4 of its 32 layers (1,216,385,024 weights: 32
+     layers would need ~97 GB of card memory at ~16 B a weight, and each
+     commit is 12 B a weight on disk), f32 masters drawn on the card from
+     seed 0, bf16 working weights, the launcher's batches (4 x 256 tokens)
+     through the Dash-LH dedup stage (``DedupFilter`` on the card, 5 %
+     aliased documents) into the fault-tolerant ``Trainer``: 8 steps, an
+     async commit every 4 (one kept, under the git-ignored ``build/train``,
+     removed at the end), a fault injected at step 5 and restored from the
+     step-4 commit, the final clean commit; then the dedup stage screens
+     the stream on to its 256th document (~12 aliased). Snapshots go
+     through one pinned host buffer the checkpoint manager reuses; files
+     are written by 4 threads. The launch counters are set to 0 just
+     before the run and read just after the screening. Checks: every loss
+     finite, the last below the first, the restart restored step 4, every
+     restored tensor equal to the commit's bytes (checked by the fault
+     hook at the first step after the restart), some documents aliased and
+     every one skipped, the dedup table's ``n_items`` equal to its
+     recount. Prints peak HBM,
+     the step p50 against the FLOP bound (6 x the matrices a token
+     multiplies x tokens / 989 TFLOP/s) and AdamW's byte bound (28 B a
+     weight / 3.35 TB/s), the busy share of 2 traced steps, each save's
+     host-copy and write seconds and GB, the restore's manifest and tensor
+     seconds, and the disk. Phase 3 also runs 3 ``Trainer`` steps in
+     float32 on the card and on the CPU from one ``TrainState`` for
+     reduced yi-6b, h2o-danube-3-4b (the SWA band), mixtral-8x7b (MoE),
+     recurrentgemma-9b, rwkv6-7b and llava-next-mistral-7b (the vlm front),
+     and 4 steps of ``python -m repro_torch.launch.train --dedup`` through
+     its ``main``: losses, grad norms and the final states within
+     ``LM_STREAM_TOL``.
 
-Each kernel's ``launches`` in the JSON line is the sum over the eleven
+Each kernel's ``launches`` in the JSON line is the sum over the twelve
 paths driven with counters (the EH main path, the frontend, the durable
 path, the LH path, the baselines' load, the 4-rank DHT summed over its
-ranks, the one-rank NCCL DHT and the four LM serving paths). The durable line also prints
+ranks, the one-rank NCCL DHT, the four LM serving paths and the train
+path). The durable line also prints
 the bytes that really crossed to the host a flush. The last three
 lines are the card line, one JSON object describing every kernel, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -220,11 +257,25 @@ DEVICE = "cuda"                  # a CPU rehearsal of the phases sets "cpu"
 LH_KEYS = 4_000_000
 #: the frontend phase: keys loaded, then fresh keys of its split storm
 FE_KEYS = 4_000_000
+#: the frontend's table starts at this depth (1024 segments), so its load
+#: skips the tiny first batches that the main path drives from one segment
+#: (the main path reached 512 segments at 55.7 s of its load on a host where
+#: the frontend's whole 4M-key load took 105.9 s); at 4M keys it splits to
+#: ~8192 segments as before
+FE_DEPTH = 10
 FE_FRESH = 1 << 17
 #: the shrink phase: keys loaded (80 % then deleted), then fresh keys
 #: (cut from 1M when the baselines phase came: whole runs took 925-1250 s
-#: of the 1200 with the host's speed)
+#: of the 1200 with the host's speed; then to 0.5M and 0.25M). Its time is
+#: its load's growing batches, not its keys: 72.0 s at 0.25M and 71.5 s at
+#: 0.125M on two hosts
 SHRINK_KEYS = 250_000
+#: the shrink table starts at this depth (128 segments), so its load skips
+#: the main path's tiny first batches (the phase tests the merges, not the
+#: growth from one segment, which the main path drives): its growing-batch
+#: load took 99.1 s of a whole run that ended at 1158 s on a slow host.
+#: Merges still go below it (to depth 1)
+SHRINK_DEPTH = 7
 #: the durable phase's storm: fresh inserts through flush-on-publish (cut
 #: from 65,536 by the time limit: every flush fences the 969 MB mapping)
 DURABLE_FRESH = 1 << 14
@@ -250,7 +301,14 @@ KERNELS = {   # name: (source, TPU kernel it replaces)
 }
 
 
+#: the run's start on the host's clock: each phase's line ends with the
+#: seconds of the run spent when it is printed
+_RUN_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    if msg.startswith("phase "):
+        msg += f" (at {time.perf_counter() - _RUN_T0:.0f}s of the run)"
     print(msg, flush=True)
 
 
@@ -736,6 +794,79 @@ def _front_stream(arch: str, device, seed: int):
     return None, out
 
 
+#: the training card-vs-CPU streams: (arch, seed), one for each block kind and
+#: the vlm front; and the launcher's stream. Their checkpoints go under
+#: TRAIN_STREAM_DIR (git-ignored build/) and are removed after each stream
+TRAIN_STREAMS = (("yi-6b", 28), ("h2o-danube-3-4b", 29), ("mixtral-8x7b", 30),
+                 ("recurrentgemma-9b", 31), ("rwkv6-7b", 32), ("llava-next-mistral-7b", 33))
+TRAIN_STREAM_DIR = Path(__file__).resolve().parent / "build" / "train_streams"
+
+
+def _stream_dir(name: str, device) -> Path:
+    d = TRAIN_STREAM_DIR / f"{name}-{'cpu' if str(device) == 'cpu' else 'card'}"
+    shutil.rmtree(d, ignore_errors=True)
+    return d
+
+
+def _train_stream(arch: str, device, seed: int):
+    """3 steps of the port's ``Trainer`` over the reduced ``arch`` in
+    float32 from the same ``TrainState`` (weights drawn on the CPU from
+    ``seed``, then moved), batches of 2 x 64 tokens (vlm: after its 16
+    patches): every loss and grad norm, then the final commit's params,
+    ``m``, ``v``, count and step (floats within ``LM_STREAM_TOL``)."""
+    import dataclasses
+    from repro_torch import interop
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import batch_iter
+    from repro_torch.train.trainer import Trainer, TrainerConfig, init_state
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
+    cfg = dataclasses.replace(get_config(arch, reduced=True), dtype="float32")
+    d = _stream_dir(arch, device)
+    t = Trainer(cfg, TrainerConfig(total_steps=3, checkpoint_every=100, checkpoint_dir=str(d),
+                                   async_checkpoint=False),
+                batch_iter(cfg, 2, 64, dedup=False), device=device,
+                state=init_state(cfg, seed, "cpu"))
+    log_ = t.run()["log"]
+    out = [np.array([m["loss"] for m in log_]), np.array([m["grad_norm"] for m in log_])]
+    out += list(interop.train_state_to_numpy(t.state).values())
+    shutil.rmtree(d, ignore_errors=True)
+    return None, out
+
+
+def _train_launcher_stream(device, seed: int):
+    """``python -m repro_torch.launch.train --dedup --resume`` (reduced
+    yi-6b, 4 steps of 2 x 64 tokens, a commit every 2) through its
+    ``main``, with the launcher's ``get_config`` giving the config in
+    float32, resuming from a step-0 commit of weights drawn on the CPU from
+    ``seed`` (the launcher draws its own on its device, and the card's
+    generator is not the CPU's): every loss and grad norm, the commits'
+    facts, and the final commit's tensors."""
+    import contextlib
+    import dataclasses
+    import io
+    from unittest import mock
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launcher
+    from repro_torch.train.trainer import init_state
+    d = _stream_dir("launcher", device)
+    cfg = dataclasses.replace(get_config("yi-6b", reduced=True), dtype="float32")
+    CheckpointManager(str(d)).save(0, init_state(cfg, seed, "cpu"))
+    with contextlib.redirect_stdout(io.StringIO()), \
+            mock.patch.object(launcher, "get_config", lambda arch, reduced: cfg):
+        res = launcher.main(["--steps", "4", "--batch", "2", "--seq", "64", "--dedup",
+                             "--ckpt-every", "2", "--ckpt-dir", str(d), "--resume",
+                             "--device", str(device)])
+    mgr = CheckpointManager(str(d))
+    manifest, lazy, _ = mgr.restore_manifest()
+    out = [np.array([m["loss"] for m in res["log"]]),
+           np.array([m["grad_norm"] for m in res["log"]]),
+           np.array([res["final_step"], manifest["step"], int(manifest["clean"])])]
+    out += [np.array(v.get()) for v in lazy.values()]
+    shutil.rmtree(d, ignore_errors=True)
+    return None, out
+
+
 def _fixed_recorder():
     """A flight recorder whose clocks count calls: the same stream writes
     the same recorder windows, so pool files compare byte for byte."""
@@ -893,6 +1024,9 @@ def _stream_table():
            for arch, seed in LM_ENGINE_STREAMS},
         **{f"lm {arch}": (lambda dev, arch=arch, seed=seed: _front_stream(arch, dev, seed))
            for arch, seed in LM_FRONT_STREAMS},
+        **{f"train {arch}": (lambda dev, arch=arch, seed=seed: _train_stream(arch, dev, seed))
+           for arch, seed in TRAIN_STREAMS},
+        "train launcher": lambda dev: _train_launcher_stream(dev, 34),
     }
     return streams, set(durable)
 
@@ -902,12 +1036,16 @@ CPU_THREADS = 2
 #: the CPU halves took ~47 s beside nothing; each child gets this long
 HALVES_TIMEOUT = 600.0
 HALVES = Path(__file__).resolve().parent / "build" / "halves"
-#: card streams run by two more processes on the card, beside this one's
+#: card streams run by three more processes on the card, beside this one's
 #: (their facts come from their answers and final planes, none from a table
-#: object); the three take about the same time
+#: object); the third came with the training streams, when this process's
+#: halves took 78.8 s on a slow host (shrink 21.8 s, the two frontend
+#: streams ~22 s) and the pointer group's 66 s came next
 CARD_CHILD_GROUPS = (("durable eh", "durable lh", "fault plan", "chaos", "level",
                       "pessimistic", "prefix cache", "dedup"),
-                     ("pointer", "eh", "lh"))
+                     ("pointer", "eh", "lm yi-6b", "lm h2o-danube-3-4b",
+                      *(f"lm {arch}" for arch, _ in LM_ENGINE_STREAMS)),
+                     ("shrink", "frontend", "frontend routed reads", "lh"))
 
 
 def _child_setup(threads: int) -> None:
@@ -1004,7 +1142,7 @@ class _Shadow:
 
 
 def phase_cuda_vs_cpu(cpu_child):
-    """Every stream on the card — the ``CARD_CHILD_GROUPS`` in two more
+    """Every stream on the card — the ``CARD_CHILD_GROUPS`` in three more
     processes on the card started here, the rest in this one — while
     ``cpu_child`` (``start_cpu_halves``) runs all of them on the CPU; then
     answers, planes and pool bytes are compared."""
@@ -1026,10 +1164,12 @@ def phase_cuda_vs_cpu(cpu_child):
         _join(child, HALVES_TIMEOUT, f"card process {i}")
     _join(cpu_child, HALVES_TIMEOUT, "the CPU halves")
     wait_s = time.perf_counter() - t0 - card_s
-    child_card = {}
+    child_card, child_s = {}, []
     for i in range(len(children)):
         with open(HALVES / f"card{i}.pkl", "rb") as f:
-            child_card.update(pickle.load(f))
+            got = pickle.load(f)
+        child_card.update(got)
+        child_s.append(sum(v[2] for v in got.values()))
     with open(HALVES / "cpu.pkl", "rb") as f:
         cpu = pickle.load(f)
     for name, (answers, planes, secs) in child_card.items():
@@ -1040,7 +1180,8 @@ def phase_cuda_vs_cpu(cpu_child):
         check(len(out_gpu) == len(out_cpu), f"{name}: answer counts differ")
         for i, (a, b) in enumerate(zip(out_gpu, out_cpu)):
             same = (a.shape == b.shape and np.allclose(a, b, **LM_STREAM_TOL)
-                    if name.startswith("lm ") and a.dtype.kind == "f" else np.array_equal(a, b))
+                    if name.startswith(("lm ", "train ")) and a.dtype.kind == "f"
+                    else np.array_equal(a, b))
             check(same, f"{name}: answer {i} differs between cuda and cpu")
         a = (child_card[name][1] if name in child_card
              else None if t_gpu is None else interop.state_to_numpy(t_gpu.state))
@@ -1111,6 +1252,17 @@ def phase_cuda_vs_cpu(cpu_child):
         check(facts[f"lm {arch}"][1][-1].tolist() == [67, 67], f"lm {arch}: positions "
               f"{facts[f'lm {arch}'][1][-1]}")
         lm_facts.append(f"{arch} prefill + 3 steps")
+    train_facts = []
+    for name in [f"train {a}" for a, _ in TRAIN_STREAMS] + ["train launcher"]:
+        losses = facts[name][1][0]
+        check(np.isfinite(losses).all(), f"{name}: losses {losses}")
+        gap = max(float(np.abs(a - b).max()) for a, b in zip(facts[name][1], cpu[name][0])
+                  if a.dtype.kind == "f" and a.size)
+        train_facts.append(f"{name[6:]} loss {losses[0]:.4f} -> {losses[-1]:.4f}, max gap "
+                           f"{gap:.2e}")
+    steps, committed, clean = facts["train launcher"][1][2]
+    check(steps == 4 and committed == 4 and clean == 1,
+          f"train launcher: {steps} steps, last commit {committed}, clean {clean}")
     baseline_facts = (
         f"level hashing k {lvl[0]} after {lvl[1]} rehashes; CCEH "
         f"{facts['cceh'][0].n_segments} segments, load factor "
@@ -1129,9 +1281,14 @@ def phase_cuda_vs_cpu(cpu_child):
         f"after every flush ({'; '.join(durable_facts)}); baselines and apps "
         f"({baseline_facts}); LM serving streams in float32 with equal tokens, pages "
         f"and prefix planes, the page pool within {LM_STREAM_TOL['atol']} "
-        f"({'; '.join(lm_facts)}) ({time.perf_counter() - t0:.1f}s: this process's card "
-        f"halves {card_s:.1f}s, then {wait_s:.1f}s waiting on the other card processes and "
-        f"the CPU child; slowest streams on the card "
+        f"({'; '.join(lm_facts)}); training streams in float32 (3 Trainer steps from one "
+        f"TrainState; the launcher 4 steps with --dedup), losses, grad norms and final "
+        f"states within {LM_STREAM_TOL['atol']} ({'; '.join(train_facts)}) "
+        f"({time.perf_counter() - t0:.1f}s: this process's card "
+        f"halves {card_s:.1f}s, then {wait_s:.1f}s waiting on the other card processes ("
+        + ", ".join(f"{x:.1f}s" for x in child_s) + ") and the CPU child (its streams "
+        f"{sum(v[2] for v in cpu.values()):.1f}s, started with the run); slowest streams on "
+        f"the card "
         + ", ".join(f"{k} {v:.1f}s" for k, v in slowest) + ")")
 
 
@@ -2209,7 +2366,9 @@ def phase_shrink(cfg, n_keys: int = SHRINK_KEYS, n_fresh: int = SHRINK_KEYS // 2
 
 
 #: the baselines phase: unique uniform keys loaded into each of its four
-#: tables, cut from 2M by the run's time limit (see PREFIX_PROMPTS)
+#: tables, cut from 2M by the run's time limit (see PREFIX_PROMPTS). Like
+#: shrink's, its loads cost batches, not keys: Dash-EH's 0.25M keys took
+#: 58.5 s on a host where 0.5M had taken 51.6 s on another
 BASE_KEYS = 500_000
 #: level hashing's load batches: Fig. 7's batch (benchmarks/single_op.py), and
 #: the shape ``level_scan`` is held and timed at. Level hashing has no
@@ -2395,6 +2554,12 @@ PREFIX_PROMPTS = 400
 PREFIX_PAGES = 2048
 #: batches of the dedup stream (the example's 30, halved by the time limit)
 DEDUP_BATCHES = 15
+#: past the run's budget (see RUN_BUDGET_S) the apps are halved: 200
+#: prompts (~1550 blocks) into 1024 pages, 8 dedup batches. Together they
+#: took 32.7 s (prefix 22.2 s, dedup 7.4 s, halved) and 57.4 s to 60.1 s
+#: (whole) on NVIDIA H100 80GB HBM3, 700.00 W
+APPS_CUT = (200, 1024, 8)
+APPS_CUT_SAVES_S = 25.0
 
 
 def _prefix_cache_app(card: str, n_prompts: int = PREFIX_PROMPTS,
@@ -2433,8 +2598,8 @@ def _prefix_cache_app(card: str, n_prompts: int = PREFIX_PROMPTS,
     return out
 
 
-def _dedup_app(card: str):
-    """The dedup stream of examples/dedup_pipeline.py: ``DEDUP_BATCHES``
+def _dedup_app(card: str, n_batches: int = DEDUP_BATCHES):
+    """The dedup stream of examples/dedup_pipeline.py: ``n_batches``
     batches of 8 x 512 tokens, 25 % synthetic duplicates, through
     DedupFilter's Dash-LH."""
     from repro_torch.data import DedupFilter, PackedBatcher, PipelineConfig
@@ -2443,19 +2608,20 @@ def _dedup_app(card: str):
     d = DedupFilter(device=DEVICE)
     b = PackedBatcher(pc, dedup=d)
     t0 = time.perf_counter()
-    for _ in range(DEDUP_BATCHES):
+    for _ in range(n_batches):
         b.next_batch()
     s = time.perf_counter() - t0
     check(b.docs_skipped > 0 and d.unique_docs == b.docs_seen - b.docs_skipped,
           f"dedup: {b.docs_seen} seen, {b.docs_skipped} skipped, {d.unique_docs} unique")
     out = dict(seen=b.docs_seen, skipped=b.docs_skipped, doc_us=s / b.docs_seen * 1e6)
-    log(f"  baselines dedup [{card}]: 30 batches of 8 x 512 tokens, {b.docs_seen} docs seen, "
+    log(f"  baselines dedup [{card}]: {n_batches} batches of 8 x 512 tokens, {b.docs_seen} "
+        f"docs seen, "
         f"{b.docs_skipped} skipped, {d.unique_docs} unique in {d.table.n_segments} LH "
         f"segments; {out['doc_us']:.1f} us per document (host clock), {s:.1f}s")
     return out
 
 
-def phase_baselines(report, card: str, n_keys: int = BASE_KEYS):
+def phase_baselines(report, card: str, n_keys: int = BASE_KEYS, cut_apps: bool = False):
     """The paper's baselines beside Dash on one card, and the Dash apps.
 
     ``level_scan`` is held exactly to its plain version (the 3000-key
@@ -2467,7 +2633,8 @@ def phase_baselines(report, card: str, n_keys: int = BASE_KEYS):
     positive and 1M negative searches, every key found with its value and no absent
     key found. Then both read kernels on the Bucketized planes, Fig. 13's
     pair, ``level_scan`` at the load's batch shape on the full table, the
-    prefix cache and the dedup stream."""
+    prefix cache and the dedup stream (at ``APPS_CUT``'s sizes with
+    ``cut_apps``)."""
     from repro_torch.core import DashConfig, DashEH, INSERTED, hashing
     from repro_torch.core.baselines import (LevelConfig, LevelHashing, LevelState,
                                             bucketized_config, cceh_config)
@@ -2606,8 +2773,10 @@ def phase_baselines(report, card: str, n_keys: int = BASE_KEYS):
     del t, base, work
 
     # ---- the apps ----
-    pc = _prefix_cache_app(card)
-    dd = _dedup_app(card)
+    prompts, pages, batches = APPS_CUT if cut_apps else (PREFIX_PROMPTS, PREFIX_PAGES,
+                                                         DEDUP_BATCHES)
+    pc = _prefix_cache_app(card, prompts, pages)
+    dd = _dedup_app(card, batches)
     secs = time.perf_counter() - t_phase
     log(f"phase baselines: ok launches {launches} ({secs:.1f}s) [{card}]")
     return dict(rows=rows, fig13=(opt_ms, pess_ms), prefix=pc, dedup=dd, seconds=secs)
@@ -2920,6 +3089,220 @@ def lm_line(lm, card: str) -> str:
             f"suffix prefill {pt[1] / pt[0]:.3f}; phase {lm['seconds']:.0f}s")
 
 
+#: phase 13: training at yi-6b's published widths on TRAIN_LAYERS of its 32
+#: layers (1.216B weights at 4: 173.0M a layer + 524.3M of embedding and
+#: head; at ~16 B a weight on the card the 32 layers' 6.06B would need ~97
+#: GB, and each f32 commit is 12 B a weight on disk: 14.6 GB at 4 layers,
+#: 73 GB at 32). The launcher's batch (TRAIN_BATCH x TRAIN_SEQ tokens,
+#: --dedup), TRAIN_STEPS steps, a commit every TRAIN_EVERY steps, one
+#: injected fault at step TRAIN_FAULT; TRAIN_KEEP commits kept
+TRAIN_ARCH, TRAIN_LAYERS = "yi-6b", 4
+TRAIN_BATCH, TRAIN_SEQ = 4, 256
+TRAIN_STEPS, TRAIN_EVERY, TRAIN_FAULT, TRAIN_KEEP = 8, 4, 5, 1
+#: steps traced for the busy share, after the run
+TRAIN_TRACE_STEPS = 2
+#: after the run the dedup stage screens the launcher's stream on to this
+#: document (the batches the trainer would take next): the run's 8 steps
+#: see ~14 documents, and the stream aliases a document past the 10th with
+#: probability 0.05, so ~12 of these are aliased
+TRAIN_DEDUP_DOCS = 256
+#: the phase's share of the run's budget (40.5 and 41.3 s in two runs on
+#: NVIDIA H100 80GB HBM3, 700.00 W)
+TRAIN_PHASE_S = 45.0
+TRAIN_DIR = Path(__file__).resolve().parent / "build" / "train"
+
+
+def _same_as_commit(state, ckpt) -> int:
+    """Bytes of ``state`` checked equal to the latest commit of ``ckpt``,
+    tensor by tensor (each file copied to the state's device and compared
+    there); fails the phase on the first difference. The files' maps are
+    dropped before it returns."""
+    import warnings
+    from repro_torch.checkpoint.manager import flatten
+    _, lazy, _ = ckpt.restore_manifest()
+    flat, n = flatten(state), 0
+    check(set(flat) == set(lazy), f"train: the commit holds {len(lazy)} tensors for "
+          f"{len(flat)}")
+    for key, t in flat.items():
+        with warnings.catch_warnings():          # a read-only map, only read
+            warnings.simplefilter("ignore", UserWarning)
+            src = torch.from_numpy(lazy[key].get()).to(t.device)
+        check(torch.equal(t, src), f"train: {key} differs from the commit after the restore")
+        n += src.numel() * src.element_size()
+    return n
+
+
+def phase_train(report, card: str, n_layers: int = TRAIN_LAYERS, steps: int = TRAIN_STEPS):
+    """Training at full width: ``TRAIN_ARCH`` at its published widths on
+    ``n_layers`` layers, weights drawn from seed 0 (f32 masters), through
+    the launcher's batches with the Dash-LH dedup stage on the card and the
+    fault-tolerant ``Trainer``: ``steps`` steps, an async commit every
+    ``TRAIN_EVERY``, one fault injected at step ``TRAIN_FAULT`` (restored
+    from the last commit), the final clean commit; then the dedup stage
+    screens the stream on to ``TRAIN_DEDUP_DOCS`` documents. The launch
+    counters are set to 0 just before the run and read just after the
+    screening. Checks: every loss finite, the last below the first, the
+    restart restored the commit's step, every restored tensor equals the
+    commit's bytes (read by the fault hook at the first step after the
+    restart, whose logged time leaves the check out), some documents were
+    aliased and the dedup stage skipped every one, its table's ``n_items``
+    equals the recount. Prints peak HBM, the step p50 against the FLOP bound
+    (6 x the matrices a token multiplies x tokens) and AdamW's byte bound
+    (28 B a weight), the busy share of ``TRAIN_TRACE_STEPS`` traced steps,
+    each save's and the restore's seconds and GB, and the disk. The
+    checkpoint directory is removed at the end."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.core import engine as dash_engine
+    from repro_torch.kernels import fused, hashmix, probe
+    from repro_torch.launch.train import batch_iter, make_batcher
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=n_layers)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    TRAIN_DIR.mkdir(parents=True)
+    disk0 = shutil.disk_usage(TRAIN_DIR)
+    commit_gb = 12 * leaf_count(cfg) / 1e9
+    check(disk0.free / 1e9 > 2.2 * commit_gb, f"train: {disk0.free / 1e9:.1f} GB free under "
+          f"{TRAIN_DIR} for two {commit_gb:.1f} GB commits")
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    batcher = make_batcher(cfg, TRAIN_BATCH, TRAIN_SEQ, dedup=True, device=DEVICE)
+    it = batch_iter(cfg, TRAIN_BATCH, TRAIN_SEQ, True, DEVICE, batcher)
+    fired, verified = [], {}
+
+    def fault(step):
+        """The injected fault, then at the first step after the restart
+        (the state is the restored commit) the check against its files."""
+        if step == TRAIN_FAULT and not fired:
+            fired.append(step)
+            raise RuntimeError("injected fault")
+        if fired and not verified:
+            t0 = time.perf_counter()
+            verified.update(step=step, bytes=_same_as_commit(trainer.state, trainer.ckpt))
+            verified["seconds"] = time.perf_counter() - t0
+    tcfg = TrainerConfig(total_steps=steps, checkpoint_every=TRAIN_EVERY,
+                         checkpoint_dir=str(TRAIN_DIR), keep_checkpoints=TRAIN_KEEP)
+    trainer = Trainer(cfg, tcfg, it, fault_hook=fault, seed=0, device=DEVICE)
+    n_weights = sum(t.numel() for t in leaves(trainer.state.params))
+    check(n_weights == leaf_count(cfg), f"train: {n_weights} weights for the leaves' "
+          f"{leaf_count(cfg)}")
+    sync()
+    init_s = time.perf_counter() - t_phase
+
+    for mod in (hashmix, probe, fused):
+        mod.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = trainer.run()
+    sync()
+    run_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    while batcher.docs_seen < TRAIN_DEDUP_DOCS:
+        next(it)
+    sync()
+    screen_s = time.perf_counter() - t0
+    launches = {"bulk_hash": hashmix.LAUNCHES, "fingerprint_probe": probe.LAUNCHES,
+                "fused_probe": fused.LAUNCHES}
+    check(launches["bulk_hash"] > 0 or DEVICE != "cuda", "bulk_hash was not launched on the "
+          "train path")
+    for kernel, count in launches.items():
+        r = report.setdefault(kernel, {})
+        r.setdefault("paths", {})["train"] = count
+        r["launches"] = sum(r["paths"].values())
+
+    events = [m for m in res["log"] if m.get("event") == "restart"]
+    log_ = [m for m in res["log"] if "loss" in m]
+    losses = [m["loss"] for m in log_]
+    check(all(np.isfinite(losses)), f"train: losses {losses}")
+    check(losses[-1] < losses[0], f"train: the last loss {losses[-1]} is not below the first "
+          f"{losses[0]}")
+    check(res["final_step"] == steps and len(events) == 1
+          and events[0]["restored_step"] == TRAIN_EVERY * (TRAIN_FAULT // TRAIN_EVERY),
+          f"train: final step {res['final_step']}, restarts {events}")
+    check(verified.get("step") == events[0]["restored_step"] and verified["bytes"] > 0,
+          f"train: the restore was not checked ({verified})")
+    saves = trainer.ckpt.saves
+    check([s["step"] for s in saves] == [TRAIN_EVERY * k for k in range(1, steps // TRAIN_EVERY + 1)]
+          + [steps], f"train: saves at {[s['step'] for s in saves]}")
+    corpus = batcher.corpus
+    aliased = sum(corpus._dedup_index(i) != i for i in range(batcher.cursor))
+    table = batcher.dedup.table
+    recount = int(dash_engine.recount_items(table.state))
+    check(aliased > 0 and batcher.docs_skipped == aliased and table.n_items == recount
+          and table.n_items == batcher.docs_seen - batcher.docs_skipped,
+          f"train: {batcher.docs_seen} docs seen, {batcher.docs_skipped} skipped for {aliased} "
+          f"aliased; n_items {table.n_items}, recount {recount}")
+
+    # ---- the busy share of traced steps, after the run ----
+    out = {}
+    batch = {k: torch.as_tensor(np.asarray(v), device=DEVICE) for k, v in next(it).items()}
+    trainer.step_fn(trainer.state, batch)
+
+    def traced():
+        for _ in range(TRAIN_TRACE_STEPS):
+            _, m = trainer.step_fn(trainer.state, batch)
+        return float(m["loss"])
+    if DEVICE == "cuda":
+        out["trace"] = busy_share(traced)[:3]
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    # the first step after the restart ran the restore's check in its hook
+    after = res["log"].index(events[0]) + 1
+    step_ms = np.array([m["seconds"] - (verified["seconds"] if i == after else 0.0)
+                        for i, m in enumerate(res["log"]) if "loss" in m]) * 1e3
+    mm = _matmul_weights(Transformer(cfg, "meta"), cfg)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    disk1 = shutil.disk_usage(TRAIN_DIR)
+    out.update(arch=TRAIN_ARCH, layers=n_layers, weights=n_weights, init_s=init_s, run_s=run_s,
+               losses=losses, steps=len(log_), step_ms=step_ms.tolist(),
+               step_p50=float(np.percentile(step_ms, 50)),
+               step_max=float(step_ms.max()), flop_bound=6 * mm * tokens / BF16_OPS_PER_S * 1e3,
+               adamw_bound=28 * n_weights / HBM_BYTES_PER_S * 1e3, saves=saves,
+               event=events[0], restore=dict(trainer.ckpt.last_restore), verified=verified,
+               seen=batcher.docs_seen, skipped=batcher.docs_skipped, aliased=aliased,
+               screen_s=screen_s, launches=launches,
+               disk_free_gb=(disk0.free / 1e9, disk1.free / 1e9), commit_gb=commit_gb)
+    del trainer, res, batch
+    gc.collect()
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase train: ok launches {launches} ({out['seconds']:.1f}s) [{card}]")
+    return out
+
+
+def train_line(tr, card: str) -> str:
+    """The end-to-end line of the training phase."""
+    saves = "; ".join(f"step {s['step']} {s['bytes'] / 1e9:.2f} GB: host copy "
+                      f"{s['copy_s']:.2f}s, write {s.get('write_s', float('nan')):.2f}s"
+                      for s in tr["saves"])
+    ev, rs = tr["event"], tr["restore"]
+    trace = (f"; busy share {tr['trace'][1] / tr['trace'][0]:.3f} over {TRAIN_TRACE_STEPS} "
+             f"traced steps ({tr['trace'][0] * 1e3:.1f} ms wall; top: "
+             + "; ".join(f"{k} {v:.2f} ms" for k, v in tr["trace"][2]) + ")"
+             if "trace" in tr else "")
+    peak = f"peak HBM {tr['peak_gb']:.2f} GB; " if "peak_gb" in tr else ""
+    return (f"end to end train [{card}]: {tr['arch']} at full width on {tr['layers']} of its 32 "
+            f"layers (cut: 32 layers need ~97 GB at 16 B a weight) ({tr['weights']} weights; "
+            f"{peak}{TRAIN_BATCH} x {TRAIN_SEQ} tokens a step, --dedup): {tr['steps']} steps "
+            f"logged, step p50 {tr['step_p50']:.2f} ms (max {tr['step_max']:.2f}) against a "
+            f"FLOP bound of {tr['flop_bound']:.2f} ms and AdamW's byte bound of "
+            f"{tr['adamw_bound']:.2f} ms{trace}; steps ms "
+            f"[{', '.join(f'{x:.1f}' for x in tr['step_ms'])}]; loss {tr['losses'][0]:.4f} -> "
+            f"{tr['losses'][-1]:.4f}; saves: {saves}; fault at step {ev['step']} restored step "
+            f"{ev['restored_step']}: manifest {ev['manifest_restore_s'] * 1e3:.2f} ms, tensors "
+            f"{rs['bytes'] / 1e9:.2f} GB in {ev['restore_s']:.2f}s (then checked equal to the "
+            f"commit in {tr['verified']['seconds']:.2f}s, left out of that step's time); dedup "
+            f"{tr['skipped']} of {tr['seen']} docs skipped, {tr['aliased']} aliased (the "
+            f"stream screened on to its {TRAIN_DEDUP_DOCS}th in {tr['screen_s']:.2f}s); disk free {tr['disk_free_gb'][0]:.1f} -> {tr['disk_free_gb'][1]:.1f} "
+            f"GB (a commit {tr['commit_gb']:.2f} GB); made in {tr['init_s']:.1f}s, run "
+            f"{tr['run_s']:.1f}s; phase {tr['seconds']:.0f}s")
+
+
 def host_us_per_call(fn, calls: int = 1000) -> float:
     """Host microseconds per call of ``fn`` issued back to back (one sync at
     the end): what the wrapper costs the caller when its kernel is shorter."""
@@ -3030,13 +3413,23 @@ DHT_GEOMETRY = (32768, 17)
 #: distinct segments a shard may split in one split call
 DHT_SPLIT_LANES = 1024
 DHT_TIMEOUT = 300.0
-#: the run's own budget (its limit is 1200 s) and the DHT phase's cost,
-#: measured on NVIDIA H100 80GB HBM3, 700.00 W: ~60 s whatever the
-#: key count (spawns, the stream, the load's first growing batches) and
-#: ~50 s more for 1M keys. Past the budget the DHT's key count is cut first
-RUN_BUDGET_S = 1000.0
-DHT_FIXED_S = 60.0
-DHT_S_PER_MKEY = 50.0
+#: the run's own budget (its limit is 1200 s). A cut is taken only when
+#: the time spent and what is left at full size would pass it, in this
+#: order: the baselines' apps (``APPS_CUT``), yi-6b's third serving round,
+#: then the DHT's key count. What is left is reckoned from the phases'
+#: costs on NVIDIA H100 80GB HBM3, 700.00 W (``BASE_PHASE_S``,
+#: ``LM_PHASES_S``, ``TRAIN_PHASE_S``, and the DHT's below), whose host
+#: speed swings the whole run by a third
+RUN_BUDGET_S = 1050.0
+#: the baselines phase with its apps whole (149.0 s in a run that ended at
+#: 1003 s, 175.8 s in one that ended at 1130 s)
+BASE_PHASE_S = 150.0
+#: the DHT phase: 79.1-89.8 s at its 65,536-key minimum in four runs; at
+#: 1M keys 99.2 s and 123.2 s in two more (its load 73.7 s there against
+#: 32.7 s at the minimum): ~85 s whatever the key count (spawns, the
+#: stream, the load's first growing batches) and up to ~40 s more for 1M
+DHT_FIXED_S = 85.0
+DHT_S_PER_MKEY = 40.0
 DHT_DIR = Path(__file__).resolve().parent / "build" / "dht"
 
 
@@ -3501,8 +3894,9 @@ def main(argv=None) -> int:
         phase_probe_kernels(t, keys, misses, report)
         phase_recovery(t, keys, misses, truth)
         del t, truth
-        fe, carry = phase_frontend(DashConfig(max_segments=32768, dir_depth_max=17),
-                                   args.fe_keys, FE_FRESH, report, card)
+        fe, carry = phase_frontend(
+            DashConfig(max_segments=32768, dir_depth_max=17, init_depth=FE_DEPTH),
+            args.fe_keys, FE_FRESH, report, card)
         dur = phase_durable(carry, report, card)
         del carry
         t, keys, misses, lh, _ = phase_main_path(
@@ -3510,20 +3904,27 @@ def main(argv=None) -> int:
             "DashLH", "lh", lh_batch, LH_RETRIES)
         phase_probe_kernels(t, keys, misses, report)
         del t
-        phase_shrink(DashConfig(max_segments=32768, dir_depth_max=17))
-        base = phase_baselines(report, card)
+        phase_shrink(DashConfig(max_segments=32768, dir_depth_max=17, init_depth=SHRINK_DEPTH))
+        rest = LM_PHASES_S + TRAIN_PHASE_S + DHT_FIXED_S + DHT_S_PER_MKEY
+        elapsed = time.perf_counter() - t0
+        cut_apps = elapsed + BASE_PHASE_S + rest > RUN_BUDGET_S
+        if cut_apps:
+            # the run's time limit halves the apps first, then yi-6b's third round, then
+            # the DHT's keys
+            log(f"apps cut: the prefix cache {APPS_CUT[0]} prompts in {APPS_CUT[1]} pages, the "
+                f"dedup stream {APPS_CUT[2]} batches ({elapsed:.0f}s of the run spent)")
+        base = phase_baselines(report, card, cut_apps=cut_apps)
         rounds, elapsed = LM_ROUNDS, time.perf_counter() - t0
-        if elapsed + LM_PHASES_S + DHT_FIXED_S + DHT_S_PER_MKEY > RUN_BUDGET_S:
-            # the run's time limit cuts yi-6b's third round first, then the DHT's keys
+        if elapsed + rest > RUN_BUDGET_S:
             rounds = 2
             log(f"lm cut: {LM_ARCH} {rounds} rounds of {LM_ROUNDS} ({elapsed:.0f}s of the run "
                 f"spent)")
         lm = [phase_lm(report, card, LM_ARCH, rounds)]
         for arch, n_layers, pages in LM_KINDS:
             lm.append(phase_lm(report, card, arch, LM_KIND_ROUNDS, n_layers, pages))
+        train = phase_train(report, card)
         n_dht, elapsed = DHT_KEYS, time.perf_counter() - t0
         if elapsed + DHT_FIXED_S + DHT_S_PER_MKEY > RUN_BUDGET_S:
-            # then the run's time limit cuts the DHT's key count
             left = max(RUN_BUDGET_S - elapsed - DHT_FIXED_S, 0.0) / DHT_S_PER_MKEY
             n_dht = max(DHT_BATCH, int(DHT_KEYS * left) // DHT_BATCH * DHT_BATCH)
             log(f"dht cut: {n_dht} keys of {DHT_KEYS} ({elapsed:.0f}s of the run spent)")
@@ -3587,6 +3988,7 @@ def main(argv=None) -> int:
         f"phase {base['seconds']:.0f}s")
     for one in lm:
         log(lm_line(one, card))
+    log(train_line(train, card))
     log(f"end to end dht [{card}]: {DHT_RANKS} ranks sharing the card through gloo (not a "
         f"multi-GPU scaling result): insert {dht['insert_mops']:.3f} Mops/s, search "
         f"{dht['search_mops']:.3f} Mops/s (the exchange {dht['exchange_share']:.3f} of the "

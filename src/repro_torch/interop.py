@@ -6,7 +6,9 @@ ref_state._asdict().items()}``) and come back out the same way, byte for
 byte. uint32 planes live here as int32 tensors holding the same bits. A
 level-hashing ``LevelState`` crosses the same way. A language model's
 weights cross as the reference's parameter tree of numpy arrays
-(``model_params_from_jax``).
+(``model_params_from_jax``), and a whole training state (f32 masters, AdamW
+moments and count, step) by the checkpoint's key names
+(``train_state_from_jax``, ``train_state_to_numpy``).
 """
 from __future__ import annotations
 
@@ -17,7 +19,10 @@ from repro_torch.core.baselines import (LevelConfig, LevelState,
                                         level_make_state)
 from repro_torch.core.layout import (NP_DTYPES, PLANE_DTYPES, DashConfig,
                                      DashState, make_state)
+from repro_torch.checkpoint.manager import flatten
 from repro_torch.models.transformer import ModelConfig, Transformer
+from repro_torch.optim.adamw import AdamWState, map_tree
+from repro_torch.train.steps import TrainState, master_meta
 
 #: LevelState planes that hold uint32 words (the rest are int32 scalars)
 LEVEL_U32 = ("key_hi", "key_lo", "val", "alloc")
@@ -93,7 +98,8 @@ def _load(module: torch.nn.Module, tree: dict, index, loaded: set, prefix: str =
         param = getattr(module, name)
         if tuple(param.shape) != a.shape:
             raise ValueError(f"{prefix}{name}: shape {a.shape} for {tuple(param.shape)}")
-        param.copy_(torch.from_numpy(a))
+        with torch.no_grad():
+            param.copy_(torch.from_numpy(a))
         loaded.add(id(param))
 
 
@@ -119,3 +125,40 @@ def model_params_from_jax(cfg: ModelConfig, params_np: dict, device) -> Transfor
     if missing:
         raise ValueError(f"the reference's tree has no leaf for {missing[:8]}")
     return model
+
+
+def train_state_from_jax(cfg: ModelConfig, tree_np, device) -> TrainState:
+    """The port's ``TrainState`` on ``device`` from the reference's: its
+    ``TrainState`` of numpy arrays (``jax.tree.map(np.asarray, state)``) or
+    the flat dict a commit holds, keyed as the checkpoint keys it
+    (``.params/blocks_0/attn/wq``, ``.opt/.m/...``, ``.opt/.v/...``,
+    ``.opt/.count``, ``.step``). Every key of ``cfg``'s state must be there
+    with its shape and dtype (f32 leaves, int32 count and step)."""
+    flat = tree_np if isinstance(tree_np, dict) else flatten(tree_np)
+    meta = master_meta(cfg)
+
+    def f32(t):
+        return torch.empty(t.shape, dtype=torch.float32, device=device)
+    state = TrainState(params=map_tree(f32, meta),
+                       opt=AdamWState(m=map_tree(f32, meta), v=map_tree(f32, meta),
+                                      count=torch.empty((), dtype=torch.int32, device=device)),
+                       step=torch.empty((), dtype=torch.int32, device=device))
+    want = flatten(state)
+    if set(flat) != set(want):
+        raise ValueError(f"keys missing {sorted(set(want) - set(flat))[:8]}, extra "
+                         f"{sorted(set(flat) - set(want))[:8]}")
+    with torch.no_grad():
+        for key, t in want.items():
+            a = np.asarray(flat[key])
+            if a.shape != tuple(t.shape) or a.dtype != (np.int32 if t.dtype == torch.int32
+                                                        else np.float32):
+                raise ValueError(f"{key}: {a.dtype}{list(a.shape)} for {t.dtype}"
+                                 f"{list(t.shape)}")
+            t.copy_(torch.from_numpy(np.array(a)))
+    return state
+
+
+def train_state_to_numpy(state: TrainState) -> dict:
+    """The flat dict of numpy arrays a commit of ``state`` holds, keyed by
+    the checkpoint's key names."""
+    return {k: v.detach().cpu().numpy() for k, v in flatten(state).items()}

@@ -35,7 +35,8 @@ def truncated_normal_(w: torch.Tensor, scale: float, generator) -> torch.Tensor:
 
 
 def _weight(shape, dtype, device) -> nn.Parameter:
-    # serving holds no gradients: the training slice turns them on
+    # serving holds no gradients; the trainer turns them on for its own
+    # working model (train/steps.py)
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
 

@@ -1,5 +1,6 @@
-"""Decoder stack for serving: prefill that builds the decode state, and the
-one-token serve step — the port of ``repro.models.transformer``.
+"""Decoder stack: the training forward and its loss, prefill that builds the
+decode state, and the one-token serve step — the port of
+``repro.models.transformer``.
 
 The stack is declared by ``pattern``, a repeating tuple of block kinds:
 
@@ -26,6 +27,12 @@ attention kinds (C the kind's ring, ``ring_len``), ``h`` (B, d_rnn) f32 and
 and ``wkv`` (B, H, 64, 64) f32 for ``rwkv``; ``state["tail_<ti>"]`` the same
 leaves without the layer axis; ``state["pos"]`` the (B,) int32 position
 counter. ``serve_step`` writes into those tensors in place.
+
+Training (``forward_train``, ``loss_fn``) runs each block's ``forward``:
+the same maths as its prefill without the decode state, plus the MoE's aux
+loss, which serving drops. Prefill and serving run with gradients off; a
+model's weights hold gradients only where the trainer turns them on
+(``train/steps.py``).
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.layout import resolve_device
 from . import layers as L
@@ -178,6 +186,15 @@ class AttnBlock(nn.Module):
     def ffn(self, h):
         return self.moe(h)[0] if self.kind == "moe" else self.mlp(h)
 
+    def forward(self, x, positions):
+        """The training form: (x, the MoE's aux loss, or 0.0)."""
+        x = x + self.attn(self.norm1(x), positions)
+        h = self.norm2(x)
+        if self.kind == "moe":
+            y, aux = self.moe(h)
+            return x + y, aux
+        return x + self.mlp(h), 0.0
+
     def prefill(self, x, positions, cache_len: int):
         a, (k, v) = self.attn(self.norm1(x), positions, return_kv=True)
         x = x + a
@@ -203,6 +220,10 @@ class RGLRUBlock(nn.Module):
         self.rnn.init(generator)
         self.mlp.init(generator)
 
+    def forward(self, x, positions):
+        x = x + self.rnn(self.norm1(x))
+        return x + self.mlp(self.norm2(x)), 0.0
+
     def prefill(self, x, positions, cache_len: int):
         y, (h, conv) = self.rnn(self.norm1(x), return_state=True)
         x = x + y
@@ -225,6 +246,12 @@ class RWKVBlock(nn.Module):
 
     def init(self, generator):
         self.tm.init(generator)
+
+    def forward(self, x, positions):
+        y, _ = W.rwkv6_time_mix(self.tm, self.norm1(x))
+        x = x + y
+        y, _ = W.rwkv6_channel_mix(self.tm, self.norm2(x))
+        return x + y, 0.0
 
     def prefill(self, x, positions, cache_len: int):
         y, (shift, wkv) = W.rwkv6_time_mix(self.tm, self.norm1(x))
@@ -312,7 +339,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Transformer:
 
 
 # ---------------------------------------------------------------------------
-# prefill
+# train forward and loss
 # ---------------------------------------------------------------------------
 
 def inputs_to_embeddings(params: Transformer, cfg: ModelConfig, batch):
@@ -330,6 +357,53 @@ def inputs_to_embeddings(params: Transformer, cfg: ModelConfig, batch):
     return x, positions
 
 
+def forward_train(params: Transformer, cfg: ModelConfig, batch):
+    """Full-sequence forward through every layer in the reference's order
+    (``params.layers()``: the stacked blocks, then the tail). Returns (f32
+    logits (B, S, vocab), the summed MoE aux loss, f32).
+
+    With ``cfg.remat`` other than ``"none"`` each stacked block runs under
+    ``torch.utils.checkpoint`` (non-reentrant): its activations are
+    recomputed in the backward pass instead of kept. ``"dots"`` and
+    ``"full"`` both map onto that; there is no twin of the reference's
+    ``checkpoint_dots_with_no_batch_dims`` policy. Remat changes memory,
+    never values."""
+    x, positions = inputs_to_embeddings(params, cfg, batch)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for _, index, blk in params.layers():
+        if cfg.remat != "none" and index is not None:
+            x, a = checkpoint(blk, x, positions, use_reentrant=False)
+        else:
+            x, a = blk(x, positions)
+        aux = aux + a
+    logits = params.lm_head(params.norm_f(x)).float()
+    return logits, aux
+
+
+def loss_fn(params: Transformer, cfg: ModelConfig, batch, aux_weight: float = 0.01,
+            z_weight: float = 1e-4):
+    """Causal-LM cross entropy (+ MoE aux + z-loss); labels < 0 are masked.
+    For vlm the labels cover only the text positions (the sequence's suffix).
+    Returns (loss, (ce, aux)), all f32 scalars."""
+    logits, aux = forward_train(params, cfg, batch)
+    labels = batch["labels"]
+    if cfg.family == "vlm":
+        logits = logits[:, -labels.shape[1]:]
+    mask = (labels >= 0).float()
+    safe = torch.clamp(labels, min=0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+    n = torch.clamp(mask.sum(), min=1.0)
+    ce = torch.sum((lse - ll) * mask) / n
+    zl = torch.sum(torch.square(lse) * mask) / n
+    return ce + aux_weight * aux + z_weight * zl, (ce, aux)
+
+
+# ---------------------------------------------------------------------------
+# prefill
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
 def forward_prefill(params: Transformer, cfg: ModelConfig, batch, cache_len: int):
     """Full-prompt forward that also builds the decode state (KV ring caches
     at their slots, final recurrent states). Returns (logits f32 (B, S,
@@ -386,6 +460,7 @@ def decode_state_init(cfg: ModelConfig, batch: int, cache_len: int, device=None)
     return state
 
 
+@torch.no_grad()
 def serve_step(params: Transformer, cfg: ModelConfig, state, inputs):
     """One decode step: a token (or, for audio, a (B, 1, d) frame embedding)
     per lane in, f32 logits (B, vocab) and the state out. The tensors of

@@ -75,8 +75,10 @@ class ServingEngine:
         self._decode = lambda p, s, i: serve_step(p, cfg, s, i)
         self.flops_saved_tokens = 0
 
+    @torch.no_grad()
     def run(self, requests: List[Request]) -> List[Request]:
-        """Serve a batch of requests (prefix reuse + batched greedy decode)."""
+        """Serve a batch of requests (prefix reuse + batched greedy decode),
+        with gradients off."""
         B = self.batch
         if len(requests) > B:
             raise ValueError(f"{len(requests)} requests for {B} lanes")

@@ -218,11 +218,35 @@ Phases, each printed on its own line and each able to fail the run:
      its ``main``: losses, grad norms and the final states within
      ``LM_STREAM_TOL``.
 
-Each kernel's ``launches`` in the JSON line is the sum over the twelve
+ 13b. training on a mesh (inside phase 11's 4 gloo card ranks, before
+     their DHT work; the ranks are the DHT's, so the phase pays no spawn of
+     its own): a 2 x 2 (data x model) ``DeviceMesh`` under ``train_dp``,
+     yi-6b at its published widths on 4 layers, ZeRO-3 (masters, ``m`` and
+     ``v`` sharded on each leaf's embed dim over both axes), drawn from seed
+     0 as phase 13's, 3 steps on phase 13's first 3 batches (one row a
+     rank), every collective staged through pinned host buffers (gloo on
+     one card: not a multi-GPU result). Checks: the losses within one bf16
+     roundoff of phase 13's first 3 and equal on every rank, 16 embedding
+     rows, layer 0's wq and the final norm within 2.1 x the steps' summed
+     learning rates of phase 13's after 3 steps; ``compressed_psum`` over
+     'data' of three first-step gradient shards equal to its formula
+     recomputed on the host; ``moe_apply_shardmap`` (reduced mixtral,
+     train_dp) and ``moe_apply_ep_shardmap`` (reduced phi3.5, train_dp_ep)
+     on each rank's row within 1e-5 of the same variant computed in one
+     process; the elastic runbook at reduced yi-6b (a sharded commit in the
+     reference's format, ``shrink_mesh`` to (1, 2), ranks 2 and 3 leave,
+     the restore, the reshard, one step) within the CPU tests' bf16 bounds
+     of the one-device step from the same commit. Prints the steps' times,
+     peak HBM a rank, the bytes a step hands to each collective a rank, and
+     the card's kernel busy share over the traced third step (the four
+     ranks' kernel time summed) beside the host copies' time.
+
+Each kernel's ``launches`` in the JSON line is the sum over the thirteen
 paths driven with counters (the EH main path, the frontend, the durable
 path, the LH path, the baselines' load, the 4-rank DHT summed over its
-ranks, the one-rank NCCL DHT, the four LM serving paths and the train
-path). The durable line also prints
+ranks, the one-rank NCCL DHT, the four LM serving paths, the train path
+and the mesh path, which launches none: its batches are phase 13's,
+already screened). The durable line also prints
 the bytes that really crossed to the host a flush. The last three
 lines are the card line, one JSON object describing every kernel, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -398,9 +422,10 @@ def kernel_ms(fn, kernel: str, reps: int = 30, flush_mb: int = 0, setup=None) ->
     return float(np.median(times)) / 1e3
 
 
-def busy_share(fn):
+def busy_share(fn, split_copies: bool = False):
     """(wall s, device-busy s, top device ops, result) of one traced run of
-    ``fn``: the card's idle share is 1 - busy / wall."""
+    ``fn``: the card's idle share is 1 - busy / wall. With
+    ``split_copies`` also (kernel s, memcpy and memset s)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -413,6 +438,10 @@ def busy_share(fn):
     for e in dev:
         per[e.name[:60]] = per.get(e.name[:60], 0.0) + e.time_range.elapsed_us() / 1e3
     top = sorted(per.items(), key=lambda kv: -kv[1])[:5]
+    if split_copies:
+        copies = sum(e.time_range.elapsed_us() for e in dev
+                     if e.name.startswith(("Memcpy", "Memset"))) / 1e6
+        return wall, busy, top, out, (busy - copies, copies)
     return wall, busy, top, out
 
 
@@ -3172,12 +3201,26 @@ def phase_train(report, card: str, n_layers: int = TRAIN_LAYERS, steps: int = TR
     if DEVICE == "cuda":
         torch.cuda.reset_peak_memory_stats()
     batcher = make_batcher(cfg, TRAIN_BATCH, TRAIN_SEQ, dedup=True, device=DEVICE)
-    it = batch_iter(cfg, TRAIN_BATCH, TRAIN_SEQ, True, DEVICE, batcher)
+    record = {"batches": [], "samples": None}
+
+    def recorded(batches):
+        """The launcher's batches, the first ``MESH_STEPS`` kept on the host
+        for the mesh phase."""
+        for b in batches:
+            if len(record["batches"]) < MESH_STEPS:
+                record["batches"].append({k: (v.cpu().numpy() if torch.is_tensor(v)
+                                              else np.array(v)) for k, v in b.items()})
+            yield b
+    it = recorded(batch_iter(cfg, TRAIN_BATCH, TRAIN_SEQ, True, DEVICE, batcher))
     fired, verified = [], {}
 
     def fault(step):
         """The injected fault, then at the first step after the restart
-        (the state is the restored commit) the check against its files."""
+        (the state is the restored commit) the check against its files.
+        Before step ``MESH_STEPS`` it keeps the mesh phase's samples."""
+        if step == MESH_STEPS and record["samples"] is None:
+            record["samples"] = {k: v.detach().cpu().numpy().copy()
+                                 for k, v in _mesh_samples(trainer.state.params).items()}
         if step == TRAIN_FAULT and not fired:
             fired.append(step)
             raise RuntimeError("injected fault")
@@ -3265,6 +3308,10 @@ def phase_train(report, card: str, n_layers: int = TRAIN_LAYERS, steps: int = TR
                seen=batcher.docs_seen, skipped=batcher.docs_skipped, aliased=aliased,
                screen_s=screen_s, launches=launches,
                disk_free_gb=(disk0.free / 1e9, disk1.free / 1e9), commit_gb=commit_gb)
+    record["losses"] = losses[:MESH_STEPS]
+    check(record["samples"] is not None and len(record["batches"]) == MESH_STEPS,
+          "train: the mesh phase's record is incomplete")
+    out["mesh_record"] = record
     del trainer, res, batch
     gc.collect()
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
@@ -3431,6 +3478,386 @@ BASE_PHASE_S = 150.0
 DHT_FIXED_S = 85.0
 DHT_S_PER_MKEY = 40.0
 DHT_DIR = Path(__file__).resolve().parent / "build" / "dht"
+
+
+# ---------------------------------------------------------------------------
+# training on a mesh: run inside the DHT's card ranks, before their DHT work
+# ---------------------------------------------------------------------------
+
+#: the mesh phase: yi-6b at its published widths on MESH_LAYERS layers, a
+#: 2 x 2 (data x model) train_dp mesh of the DHT's 4 gloo ranks on the one
+#: card, phase 13's first MESH_STEPS batches (4 x 256 tokens, one row a rank)
+MESH_LAYERS = TRAIN_LAYERS
+MESH_STEPS = 3
+#: gradient leaves whose first-step shards go through compressed_psum
+MESH_CP_LEAVES = (("norm_f", "scale"), ("blocks_0", "attn", "wq"), ("blocks_0", "mlp", "w_down"))
+#: the phase's share of the run's budget, inside the DHT phase's wall time
+#: (29.9 and 31.6 s in the ranks in two whole runs on NVIDIA H100 80GB
+#: HBM3, 700.00 W)
+MESH_PHASE_S = 30.0
+MESH_DIR = Path(__file__).resolve().parent / "build" / "mesh"
+MESH_MOE = (("shardmap", "mixtral-8x7b", "train_dp"), ("ep", "phi3.5-moe-42b-a6.6b", "train_dp_ep"))
+
+
+#: the master leaves phase 13 and the mesh phase are compared on: (path,
+#: rows of its first dim, which no train_dp spec shards here)
+MESH_SAMPLES = {"embed": (("embed", "table"), slice(0, 16)),
+                "wq": (("blocks_0", "attn", "wq"), slice(0, 1)),
+                "norm": (("norm_f", "scale"), slice(None))}
+
+
+def _mesh_samples(params) -> dict:
+    """16 embedding rows, layer 0's wq and the final norm of a master tree
+    (full leaves or this rank's shards)."""
+    out = {}
+    for k, (path, rows) in MESH_SAMPLES.items():
+        leaf = params
+        for key in path:
+            leaf = leaf[key]
+        out[k] = leaf[rows]
+    return out
+
+
+def _moe_inputs(arch: str):
+    """Seeded f32 MoE weights (the reduced ``arch``'s widths) and a (4, 64,
+    d) input, as numpy: the same on every rank and in the parent."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch, reduced=True)
+    rng = np.random.default_rng(31)
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    w = {"router": rng.normal(0, d ** -0.5, (d, E)), "w_gate": rng.normal(0, d ** -0.5, (E, d, ff)),
+         "w_up": rng.normal(0, d ** -0.5, (E, d, ff)),
+         "w_down": rng.normal(0, ff ** -0.5, (E, ff, d))}
+    return cfg, {k: v.astype(np.float32) for k, v in w.items()}, \
+        rng.normal(0, 1, (4, 64, d)).astype(np.float32)
+
+
+def _int8_gathered(w, n: int, axis: int):
+    """``fsdp_gather_int8``'s forward computed in one process: ``w`` cut
+    into ``n`` shards on ``axis``, each quantized with its per-channel
+    scales and dequantized (f32)."""
+    from repro_torch.parallel.compression import INV_127
+    parts = []
+    for c in w.chunk(n, axis):
+        scale = torch.clamp(torch.amax(torch.abs(c), dim=axis, keepdim=True) * INV_127, min=1e-12)
+        parts.append(torch.clamp(torch.round(c / scale), -127, 127) * scale)
+    return torch.cat(parts, axis)
+
+
+def _mesh_compressed(step, mesh) -> dict:
+    """``compressed_psum`` over 'data' of this rank's first-step gradient
+    shards of ``MESH_CP_LEAVES`` (zero residuals), against the same formula
+    recomputed on the host from the data ranks' gathered shards: the
+    largest differences of the means and the residuals."""
+    from repro_torch.parallel.collectives import gather, group_for
+    from repro_torch.parallel.compression import INV_127, compressed_psum, init_residuals
+    from repro_torch.train.steps import layout_leaves
+    data = group_for(mesh, ("data",))
+    paths = [p for p, _ in layout_leaves(step.layout)]
+    grads = {"/".join(p): g for p, g in zip(paths, step.held["grads"]) if p in MESH_CP_LEAVES}
+    mean, res = compressed_psum(grads, init_residuals(grads), data)
+    inv = np.float32(INV_127)
+    errs = {}
+    for k, g in grads.items():
+        e = gather(g.float()[None], data, 0).cpu().numpy()
+        scale = max(np.float32(max(np.abs(x).max(), np.float32(1e-12))) * inv for x in e)
+        q = np.clip(np.round(e / scale), -127, 127)
+        want = q.astype(np.int32).sum(0).astype(np.float32) * scale / np.float32(data.size)
+        want = torch.from_numpy(want).to(g.dtype).float().numpy()
+        own = data.index
+        want_r = (e[own].astype(np.float64) - q[own] * np.float64(scale)).astype(np.float32)
+        errs[k] = (float(np.abs(mean[k].float().cpu().numpy() - want).max()),
+                   float(np.abs(res[k].cpu().numpy() - want_r).max()), g.numel())
+    return errs
+
+
+def _mesh_rank(rank: int, world: int, device, cfg, batches, commit_dir: str) -> dict:
+    """The mesh phase on one of the DHT's card ranks: a 2 x 2 train_dp mesh
+    over the 4 ranks; ``cfg`` (yi-6b at its published widths) from seed 0
+    sharded ZeRO-3, ``MESH_STEPS`` steps on phase 13's batches (the last
+    traced), ``compressed_psum`` on the first step's gradient shards; then
+    both MoE shard_map variants on this rank's row and the elastic runbook
+    at reduced yi-6b (a sharded commit, the shrink to (1, 2), ranks 2 and 3
+    leave the mesh, the restore, the reshard, one step). Returns what the
+    parent checks; rank 0 also the gathered samples."""
+    import gc
+    from repro_torch import interop
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import fused, hashmix, probe
+    from repro_torch.launch import elastic
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import moe as M
+    from repro_torch.models.transformer import param_specs
+    from repro_torch.parallel import collectives, sharding
+    from repro_torch.train import steps as TS
+    t0 = time.perf_counter()
+    for mod in (hashmix, probe, fused):
+        mod.LAUNCHES = 0
+    out = {}
+    mesh = make_test_mesh(2, 2, device)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    with sharding.use(mesh, "train_dp"):
+        step = TS.make_train_step(cfg)
+        state = TS.init_mesh_state(cfg, 0, mesh, device, step.layout)
+    sync()
+    out["init_s"] = time.perf_counter() - t0
+    out.update(losses=[], lrs=[], step_ms=[], bytes=[], layers=cfg.n_layers)
+    for i, b in enumerate(batches):
+        batch = {k: torch.as_tensor(v, device=device) for k, v in b.items()}
+
+        def one():
+            return step(state, batch)[1]
+        collectives.reset_bytes()
+        t1 = time.perf_counter()
+        if i == len(batches) - 1 and cuda:
+            wall, _, top, m, (busy, copies) = busy_share(one, split_copies=True)
+            out["trace"] = (wall, busy, top, copies)
+        else:
+            m = one()
+        loss = float(m["loss"])
+        sync()
+        out["step_ms"].append((time.perf_counter() - t1) * 1e3)
+        out["bytes"].append(dict(collectives.BYTES))
+        out["losses"].append(loss)
+        out["lrs"].append(float(m["lr"]))
+        if i == 0:
+            out["cp"] = _mesh_compressed(step, mesh)
+    flat = dict(TS.layout_leaves(step.layout))
+    samples = {k: TS.gather_leaf(v, flat[MESH_SAMPLES[k][0]], mesh)
+               for k, v in _mesh_samples(state.params).items()}
+    if rank == 0:
+        out["samples"] = {k: v.cpu().numpy() for k, v in samples.items()}
+    if cuda:
+        out["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+    out["main_s"] = time.perf_counter() - t0
+    if rank == 0:
+        log(f"  mesh rank 0: {cfg.n_layers} layers, steps ms {out['step_ms']}, losses "
+            f"{out['losses']}, peak HBM {out.get('peak_gb', 0.0):.2f} GB, {out['main_s']:.1f}s")
+    del state, step, samples
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # ---- the MoE shard_map variants on this rank's row (reduced, f32) ----
+    for key, arch, rules in MESH_MOE:
+        mcfg, w, x = _moe_inputs(arch)
+        with sharding.use(mesh, rules):
+            variant = M.mesh_variant(mcfg.moe_cfg(), mcfg.d_model, 1)
+            specs = {k: v[1:] for k, v in param_specs(mcfg)["blocks_0"]["moe"].items()}
+            layout = sharding.tree_shardings(specs, mesh, shape_tree=w)
+            local = {k: torch.from_numpy(np.ascontiguousarray(
+                layout[k].take(torch.from_numpy(v)).numpy())).to(device) for k, v in w.items()}
+            idx = collectives.group_for(mesh, ("data", "model")).index
+            rows = torch.from_numpy(x[idx:idx + 1]).to(device)
+            if variant[0] == "ep":
+                y, aux = M.moe_apply_ep_shardmap(local, mcfg.moe_cfg(), rows, mesh, variant[1],
+                                                 "model", variant[2])
+            else:
+                y, aux = M.moe_apply_shardmap(local, mcfg.moe_cfg(), rows, mesh, variant[1],
+                                              variant[2])
+        out[f"moe_{key}"] = (variant[0], idx, y.cpu().numpy(), float(aux))
+
+    # ---- the elastic runbook (reduced yi-6b) ----
+    ycfg = get_config("yi-6b", reduced=True)
+    rng = np.random.default_rng(41)
+    eb = [{"tokens": rng.integers(1, ycfg.vocab_size, (4, 64)).astype(np.int32),
+           "labels": rng.integers(0, ycfg.vocab_size, (4, 64)).astype(np.int32)}
+          for _ in range(2)]
+    with sharding.use(mesh, "train_dp"):
+        estep = TS.make_train_step(ycfg)
+        est = TS.init_mesh_state(ycfg, 0, mesh, device, estep.layout)
+    est, _ = estep(est, {k: torch.as_tensor(v, device=device) for k, v in eb[0].items()})
+    ckpt = CheckpointManager(commit_dir)
+    ckpt.save_sharded(int(est.step), est, estep.layout, mesh)
+    small = elastic.shrink_mesh(mesh, "data", 1, device)
+    if sharding.coordinate(small) is None:
+        out["elastic"] = {"left": True}
+    else:
+        _, lazy, _ = ckpt.restore_manifest()
+        st = interop.train_state_to_mesh(ycfg, lazy, small, "train_dp", device)
+        step = elastic.relower_for_mesh(ycfg, small, "train_dp")
+        st, m = step(st, {k: torch.as_tensor(v, device=device) for k, v in eb[1].items()})
+        full = TS.gather_tree(st.params, step.layout, small)
+        out["elastic"] = {"metrics": {k: float(v) for k, v in m.items()}, "batch": eb[1],
+                          "params": interop.train_state_to_numpy(TS.TrainState(
+                              full, st.opt, st.step)) if rank == 0 else None}
+    sharding.set_active(None)
+    out["launches"] = {"bulk_hash": hashmix.LAUNCHES, "fingerprint_probe": probe.LAUNCHES,
+                       "fused_probe": fused.LAUNCHES}
+    del est, estep
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def mesh_checks(report, card: str, ranks: list, record: dict, commit_dir: str) -> dict:
+    """The parent's checks of the mesh phase (``_mesh_rank``'s results):
+    every rank's losses equal, and held to phase 13's first steps (the loss
+    within one bf16 roundoff; the sampled masters after ``MESH_STEPS`` steps
+    within 2.1 x the steps' summed learning rates, as the CPU tests hold a
+    bf16 step); ``compressed_psum`` equal to its host formula; each MoE
+    variant within f32 roundoff of the same variant computed in this process
+    (``_int8_gathered`` weights, ``_moe_math`` on each row, the aux averaged);
+    the elastic step within the CPU tests' bf16 bounds of the one-device step
+    from the same commit."""
+    from repro_torch import interop
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import _moe_math, moe_capacity
+    from repro_torch.train import steps as TS
+    r0 = ranks[0]
+    check(all(r["losses"] == r0["losses"] for r in ranks) and np.isfinite(r0["losses"]).all(),
+          f"mesh: the ranks' losses {[r['losses'] for r in ranks]}")
+    bf16 = 2.0 ** -8
+    lr_sum = sum(r0["lrs"])
+    errs = {}
+    if record is not None:
+        for got, want in zip(r0["losses"], record["losses"]):
+            check(abs(got - want) <= bf16 * abs(want),
+                  f"mesh: losses {r0['losses']} against phase 13's {record['losses']}")
+        errs = {k: float(np.abs(r0["samples"][k] - v).max())
+                for k, v in record["samples"].items()}
+        check(lr_sum > 0 and all(e <= 2.1 * lr_sum for e in errs.values()),
+              f"mesh: sampled masters {errs} above 2.1 x {lr_sum}")
+    cp = {k: max(r["cp"][k][:2] for r in ranks) for k in r0["cp"]}
+    check(all(max(v) == 0.0 for v in cp.values()), f"mesh: compressed_psum off its formula {cp}")
+    moe = {}
+    for key, arch, _ in MESH_MOE:
+        mcfg, w, x = _moe_inputs(arch)
+        mc = mcfg.moe_cfg()
+        w = {k: torch.from_numpy(v).to(DEVICE) for k, v in w.items()}
+        n = 4 if key == "shardmap" else 2
+        wg, wu = _int8_gathered(w["w_gate"], n, 1), _int8_gathered(w["w_up"], n, 1)
+        wd = _int8_gathered(w["w_down"], n, 2)
+        worst, auxes = 0.0, []
+        for r in ranks:
+            variant, idx, y, aux = r[f"moe_{key}"]
+            check(variant == key, f"mesh: moe_apply chose {variant} for {key}")
+            want, a, _ = _moe_math(mc, torch.from_numpy(x[idx:idx + 1]).to(DEVICE), w["router"],
+                                   wg, wu, wd, moe_capacity(mc, x.shape[1]))
+            worst = max(worst, float(np.abs(y - want.cpu().numpy()).max()))
+            auxes.append(float(a))
+        aux_err = abs(r0[f"moe_{key}"][3] - float(np.mean(auxes)))
+        moe[key] = (worst, aux_err)
+        check(worst <= 1e-5 and aux_err <= 1e-6, f"mesh: moe {key} off its plain computation "
+              f"({worst}, aux {aux_err})")
+    el = r0["elastic"]
+    check(not el.get("left") and [bool(r["elastic"].get("left")) for r in ranks]
+          == [False, False, True, True], "mesh: the shrink kept the wrong ranks")
+    _, lazy, _ = CheckpointManager(commit_dir).restore_manifest()
+    ycfg = get_config("yi-6b", reduced=True)
+    st = interop.train_state_from_jax(ycfg, {k: v.get() for k, v in lazy.items()}, DEVICE)
+    st, m = TS.make_train_step(ycfg)(st, {k: torch.as_tensor(v, device=DEVICE)
+                                         for k, v in el["batch"].items()})
+    for k in ("loss", "ce"):
+        check(abs(el["metrics"][k] - float(m[k])) <= bf16 * abs(float(m[k])),
+              f"mesh: elastic {k} {el['metrics'][k]} against {float(m[k])}")
+    check(abs(el["metrics"]["grad_norm"] - float(m["grad_norm"]))
+          <= 2.0 ** -11 * float(m["grad_norm"]), "mesh: elastic grad norm")
+    one = interop.train_state_to_numpy(st)
+    el_err = max(float(np.abs(el["params"][k] - v).max()) for k, v in one.items()
+                 if k.startswith(".params"))
+    check(el_err <= 2.1 * float(m["lr"]), f"mesh: elastic masters {el_err} above 2.1 x lr")
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in r0["launches"]}
+    for kernel, count in launches.items():
+        rr = report.setdefault(kernel, {})
+        rr.setdefault("paths", {})["mesh"] = count
+        rr["launches"] = sum(rr["paths"].values())
+    out = dict(ranks=ranks, errs=errs, cp=cp, moe=moe, el_err=el_err, launches=launches,
+               seconds=max(r["seconds"] for r in ranks))
+    held = (f"(phase 13: {record['losses']}), sampled masters within "
+            f"{max(errs.values()):.3g} of phase 13's (bound {2.1 * lr_sum:.3g})"
+            if record is not None else "(no one-device run to hold them to)")
+    log(f"phase mesh: ok losses {r0['losses']} {held}; "
+        f"compressed_psum exact on {sum(v[2] for v in r0['cp'].values())} gradient elements; "
+        f"moe shardmap / ep within {moe['shardmap'][0]:.3g} / {moe['ep'][0]:.3g} of their "
+        f"plain computation; elastic step within {el_err:.3g} of the one-device step; "
+        f"launches {launches} ({out['seconds']:.1f}s in the ranks) [{card}]")
+    return out
+
+
+def _mesh_card_rank(rank: int, world: int, device, **kw) -> dict:
+    """``_mesh_rank`` with this rank on its own card, warmed first."""
+    _warm_card(f"cuda:{rank}")
+    return _mesh_rank(rank, world, f"cuda:{rank}", **kw)
+
+
+def mesh_on_cards(n_layers: int = 32, world: int = 4, steps: int = 6) -> int:
+    """The mesh phase's rank function one rank a card over NCCL, on a
+    machine with ``world`` cards, at yi-6b's published widths on
+    ``n_layers`` layers (its full depth by default), ``steps`` steps of
+    seeded random batches of 4 x 256 tokens (the last traced), each rank
+    warmed first. There is no one-device run to hold
+    the losses and masters to (32 layers do not fit one card); every other
+    check of ``mesh_checks`` is made. Prints every card's line, the mesh
+    line and the checks' line. Run it as
+    ``python3 -c 'import sys, chip_smoke; sys.exit(chip_smoke.mesh_on_cards())'``."""
+    global DEVICE
+    if torch.cuda.device_count() < world:
+        print(f"chip_smoke: {world} cards needed, {torch.cuda.device_count()} present",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import dataclasses
+    from repro_torch.configs import get_config
+    DEVICE = "cuda"
+    cards = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                           capture_output=True, text=True, timeout=60).stdout.strip()
+    for line in cards.splitlines():
+        log(f"card: {line}")
+    card = cards.splitlines()[0]
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=n_layers)
+    rng = np.random.default_rng(53)
+    batches = [{"tokens": rng.integers(1, cfg.vocab_size, (4, 256)).astype(np.int32),
+                "labels": rng.integers(0, cfg.vocab_size, (4, 256)).astype(np.int32)}
+               for _ in range(steps)]
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    commit = str(MESH_DIR / "commit")
+    report = {}
+    try:
+        ranks = _wait_ranks(_spawn_ranks(_mesh_card_rank, world, "nccl", "cards", device="cuda",
+                                         cfg=cfg, batches=batches, commit_dir=commit),
+                            DHT_TIMEOUT, "the mesh's card ranks")
+        out = mesh_checks(report, card, ranks, None, commit)
+    except PhaseError as e:
+        log(f"FAILED: {e}")
+        return 1
+    finally:
+        shutil.rmtree(MESH_DIR, ignore_errors=True)
+    log(mesh_line(out, card, cards=world))
+    return 0
+
+
+def mesh_line(mesh, card: str, cards: int = 1) -> str:
+    """The end-to-end line of the mesh phase (its ranks on ``cards``
+    cards)."""
+    r0 = mesh["ranks"][0]
+    gb = 1e9
+    per = {k: np.mean([b[k] for b in r0["bytes"]]) / gb for k in r0["bytes"][0]}
+    peak = [r.get("peak_gb") for r in mesh["ranks"]]
+    trace = ""
+    if "trace" in r0:
+        wall = r0["trace"][0]
+        busy = sum(r["trace"][1] for r in mesh["ranks"])
+        copies = sum(r["trace"][3] for r in mesh["ranks"])
+        trace = (f"; {'the card' if cards == 1 else 'a card on average'}'s kernels busy "
+                 f"{busy / cards / wall:.3f} of rank 0's traced step ({wall * 1e3:.1f} ms wall; "
+                 f"the ranks' kernel time summed, {busy * 1e3:.1f} ms; their copies to and "
+                 f"from the host {copies * 1e3:.1f} ms more; rank 0's top: "
+                 + "; ".join(f"{k} {v:.2f} ms" for k, v in r0["trace"][2]) + ")")
+    return (f"end to end mesh [{card}]: yi-6b at full width on {r0['layers']} layers, train_dp "
+            f"on a 2 x 2 mesh of " + ("4 gloo ranks sharing the card (collectives through the "
+                                      "host; not a multi-GPU result)" if cards == 1 else
+                                      f"{cards} NCCL ranks, one a card") + f": steps ms [{', '.join(f'{x:.1f}' for x in r0['step_ms'])}], "
+            f"p50 {np.percentile(r0['step_ms'], 50):.1f}; init {r0['init_s']:.1f}s; peak HBM a "
+            f"rank [{', '.join(f'{x:.2f}' for x in peak if x is not None)}] GB; GB a step a rank "
+            f"into " + ", ".join(f"{k} {v:.3f}" for k, v in per.items()) + trace
+            + f"; phase {mesh['seconds']:.1f}s")
 
 
 def _rank_entry(target, rank: int, world: int, init: str, backend: str, result: str,
@@ -3729,12 +4156,64 @@ def _dht_full(rank: int, world: int, device, n_keys: int, ticks: int, fresh: int
     return out
 
 
-def _dht_card_rank(rank: int, world: int, device, pool_dir: str, **full):
-    """A card rank: the card-vs-CPU stream, then the full-width DHT."""
+def _warm_card(device) -> None:
+    """One forward and backward of yi-6b at its published widths on one
+    layer: the process's first matrix products and backward pay the
+    libraries' start (seconds a process) here, not in a timed step."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params, loss_fn
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=1)
+    model = init_params(cfg, 0, device)
+    for p in model.parameters():
+        p.requires_grad_(True)
+    tokens = torch.zeros((1, TRAIN_SEQ), dtype=torch.int32, device=device)
+    loss_fn(model, cfg, {"tokens": tokens, "labels": tokens})[0].backward()
+    torch.cuda.synchronize(device)
+    del model
+    torch.cuda.empty_cache()
+
+
+def _await_go(go: str, timeout: float = 3000.0) -> dict:
+    """The keyword arguments the parent writes to ``go`` when the phase
+    starts; gives up when the parent is gone or after ``timeout``."""
+    import pickle
+    parent, deadline = os.getppid(), time.perf_counter() + timeout
+    while not os.path.exists(go):
+        if os.getppid() != parent or time.perf_counter() > deadline:
+            raise RuntimeError("no go from the parent")
+        time.sleep(0.2)
+    with open(go, "rb") as f:
+        return pickle.load(f)
+
+
+def _dht_card_rank(rank: int, world: int, device, pool_dir: str, go: str):
+    """A card rank, started with the run: it warms the card's libraries,
+    waits for ``phase_dht``'s arguments (``go``), then runs the mesh phase
+    when they hold its arguments (cfg, batches, commit dir), the
+    card-vs-CPU stream and the full-width DHT."""
+    if torch.device(device).type == "cuda":
+        _warm_card(device)
+    full = _await_go(go)
+    mesh = full.pop("mesh")
+    out = {"mesh": _mesh_rank(rank, world, device, *mesh) if mesh is not None else None}
     t0 = time.perf_counter()
     stream = _dht_stream(rank, world, device, pool_dir)
-    return dict(stream=stream, stream_s=time.perf_counter() - t0,
+    return dict(out, stream=stream, stream_s=time.perf_counter() - t0,
                 full=_dht_full(rank, world, device, **full))
+
+
+def start_dht_cards():
+    """Start the DHT's 4 card ranks (a gloo group sharing the card) with
+    the run, so their imports, CUDA contexts and warm-up overlap earlier
+    phases; ``phase_dht`` sends them their arguments. Returns (the group,
+    its go file)."""
+    dev = "cuda:0" if DEVICE == "cuda" else "cpu"
+    DHT_DIR.mkdir(parents=True, exist_ok=True)
+    go = DHT_DIR / "go-card.pkl"
+    go.unlink(missing_ok=True)
+    return _spawn_ranks(_dht_card_rank, DHT_RANKS, "gloo", "card", device=dev,
+                        pool_dir=str(DHT_DIR / "pools-card"), go=str(go)), go
 
 
 def start_dht_nccl(nccl_keys: int = DHT_NCCL_KEYS, geometry=None):
@@ -3748,7 +4227,7 @@ def start_dht_nccl(nccl_keys: int = DHT_NCCL_KEYS, geometry=None):
 
 
 def phase_dht(report, card: str, nccl, n_keys: int = DHT_KEYS, geometry=None,
-              ticks: int = DHT_TICKS, fresh: int = DHT_FRESH):
+              ticks: int = DHT_TICKS, fresh: int = DHT_FRESH, mesh=None, cards=None):
     """The sharded DHT (``repro_torch.distributed``), one process per rank:
     the card-vs-CPU stream on 4 gloo ranks on the card and 4 on the CPU
     (answers, every rank's planes after every stage and every shard pool
@@ -3757,18 +4236,35 @@ def phase_dht(report, card: str, nccl, n_keys: int = DHT_KEYS, geometry=None,
     one-rank NCCL group (``start_dht_nccl``, waited on by the caller). The
     launch counters of both full-width runs are summed over the ranks. A
     CPU rehearsal passes a smaller ``geometry`` (max_segments,
-    dir_depth_max) and counts."""
+    dir_depth_max) and counts. ``mesh``: phase 13's record (``phase_train``'s
+    ``mesh_record``) and the mesh's config; the card ranks run the mesh
+    phase first and ``mesh_checks`` holds it (the result's ``"mesh"``).
+    ``cards``: the card ranks ``start_dht_cards`` started with the run
+    (started here when None)."""
+    import pickle
     geometry = geometry or DHT_GEOMETRY
     t_phase = time.perf_counter()
-    shutil.rmtree(DHT_DIR, ignore_errors=True)
+    group, go = cards or start_dht_cards()
     pools = {dev: str(DHT_DIR / f"pools-{dev}") for dev in ("cpu", "card")}
-    dev = "cuda:0" if DEVICE == "cuda" else "cpu"
+    for path in pools.values():
+        shutil.rmtree(path, ignore_errors=True)
     cpu = _spawn_ranks(_dht_stream, DHT_RANKS, "gloo", "cpu", device="cpu",
                        pool_dir=pools["cpu"])
-    ranks = _wait_ranks(_spawn_ranks(_dht_card_rank, DHT_RANKS, "gloo", "card",
-                                     device=dev, pool_dir=pools["card"], n_keys=n_keys,
-                                     ticks=ticks, fresh=fresh, geometry=geometry),
-                        DHT_TIMEOUT, "the card's DHT ranks")
+    mesh_args = None
+    if mesh is not None:
+        shutil.rmtree(MESH_DIR, ignore_errors=True)
+        mesh_args = (mesh["cfg"], mesh["record"]["batches"], str(MESH_DIR / "commit"))
+    tmp = go.with_suffix(".tmp")
+    with open(tmp, "wb") as f:
+        pickle.dump(dict(n_keys=n_keys, ticks=ticks, fresh=fresh, geometry=geometry,
+                         mesh=mesh_args), f)
+    os.replace(tmp, go)
+    ranks = _wait_ranks(group, DHT_TIMEOUT, "the card's DHT ranks")
+    mesh_out = None
+    if mesh is not None:
+        mesh_out = mesh_checks(report, card, [r["mesh"] for r in ranks], mesh["record"],
+                               str(MESH_DIR / "commit"))
+        shutil.rmtree(MESH_DIR, ignore_errors=True)
     cpu_ranks = _wait_ranks(cpu, DHT_TIMEOUT, "the CPU's DHT ranks")
     for r, (mine, theirs) in enumerate(zip(ranks, cpu_ranks)):
         a, b = mine["stream"], theirs
@@ -3810,7 +4306,7 @@ def phase_dht(report, card: str, nccl, n_keys: int = DHT_KEYS, geometry=None,
                exchange_search=f0["exchange_search"] / f0["search_s"],
                p50=np.percentile(sj, 50), p99=np.percentile(sj, 99),
                tick_p50=np.percentile(tk, 50), tick_p99=np.percentile(tk, 99),
-               keys=n_keys, segments=f0["segments"], nccl=nccl)
+               keys=n_keys, segments=f0["segments"], nccl=nccl, mesh=mesh_out)
     launches = {k: report[k]["paths"]["dht"] for k in ("bulk_hash", "fingerprint_probe",
                                                         "fused_probe")}
     log(f"  dht [{card}]: {DHT_RANKS} ranks in a gloo group sharing one card (not a "
@@ -3866,6 +4362,8 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import dataclasses
+    from repro_torch.configs import get_config
     from repro_torch.core import DashConfig   # fails outside a checkout of the repo
     if min(args.keys, args.lh_keys, args.fe_keys) < 4_000_000:
         print("chip_smoke: --keys, --lh-keys or --fe-keys below 4M is not the main path",
@@ -3881,11 +4379,12 @@ def main(argv=None) -> int:
         log(f"frontend cut: {args.fe_keys} keys of 8000000")
     report = {}
     t0 = time.perf_counter()
-    cpu_child = start_cpu_halves()
+    cpu_child, cards = start_cpu_halves(), None
     try:
         phase_build()
         phase_bulk_hash(report)
         nccl = start_dht_nccl()           # beside the streams, which time nothing
+        cards = start_dht_cards()         # they wait for phase_dht
         phase_cuda_vs_cpu(cpu_child)
         nccl = _wait_ranks(nccl, DHT_TIMEOUT, "the DHT's NCCL rank")[0]
         phase_edges()
@@ -3905,7 +4404,7 @@ def main(argv=None) -> int:
         phase_probe_kernels(t, keys, misses, report)
         del t
         phase_shrink(DashConfig(max_segments=32768, dir_depth_max=17, init_depth=SHRINK_DEPTH))
-        rest = LM_PHASES_S + TRAIN_PHASE_S + DHT_FIXED_S + DHT_S_PER_MKEY
+        rest = LM_PHASES_S + TRAIN_PHASE_S + MESH_PHASE_S + DHT_FIXED_S + DHT_S_PER_MKEY
         elapsed = time.perf_counter() - t0
         cut_apps = elapsed + BASE_PHASE_S + rest > RUN_BUDGET_S
         if cut_apps:
@@ -3924,11 +4423,14 @@ def main(argv=None) -> int:
             lm.append(phase_lm(report, card, arch, LM_KIND_ROUNDS, n_layers, pages))
         train = phase_train(report, card)
         n_dht, elapsed = DHT_KEYS, time.perf_counter() - t0
-        if elapsed + DHT_FIXED_S + DHT_S_PER_MKEY > RUN_BUDGET_S:
-            left = max(RUN_BUDGET_S - elapsed - DHT_FIXED_S, 0.0) / DHT_S_PER_MKEY
+        if elapsed + MESH_PHASE_S + DHT_FIXED_S + DHT_S_PER_MKEY > RUN_BUDGET_S:
+            left = max(RUN_BUDGET_S - elapsed - MESH_PHASE_S - DHT_FIXED_S,
+                       0.0) / DHT_S_PER_MKEY
             n_dht = max(DHT_BATCH, int(DHT_KEYS * left) // DHT_BATCH * DHT_BATCH)
             log(f"dht cut: {n_dht} keys of {DHT_KEYS} ({elapsed:.0f}s of the run spent)")
-        dht = phase_dht(report, card, nccl, n_dht)
+        mesh_cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=MESH_LAYERS)
+        dht = phase_dht(report, card, nccl, n_dht,
+                        mesh={"cfg": mesh_cfg, "record": train.pop("mesh_record")}, cards=cards)
     except PhaseError as e:
         log(f"FAILED: {e}")
         return 1
@@ -3936,6 +4438,10 @@ def main(argv=None) -> int:
         if cpu_child.is_alive():
             cpu_child.kill()
             cpu_child.join()
+        for p in (cards[0][0] if cards is not None else ()):
+            if p.is_alive():
+                p.kill()
+                p.join()
     for name in KERNELS:
         r = report[name]
         floor = (f"; latency floor {r['floor_ms'] * 1e3:.2f} us" if "floor_ms" in r else "")
@@ -3989,6 +4495,7 @@ def main(argv=None) -> int:
     for one in lm:
         log(lm_line(one, card))
     log(train_line(train, card))
+    log(mesh_line(dht["mesh"], card))
     log(f"end to end dht [{card}]: {DHT_RANKS} ranks sharing the card through gloo (not a "
         f"multi-GPU scaling result): insert {dht['insert_mops']:.3f} Mops/s, search "
         f"{dht['search_mops']:.3f} Mops/s (the exchange {dht['exchange_share']:.3f} of the "

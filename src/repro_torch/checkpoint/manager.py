@@ -195,6 +195,35 @@ class CheckpointManager:
             self._thread = threading.Thread(target=work, daemon=True)
             self._thread.start()
 
+    def save_sharded(self, step: int, state, layout, mesh, *, clean: bool = True,
+                     version: int = 1):
+        """Commit a state sharded on ``mesh`` in the reference's format:
+        full leaves, written once. Collective over the mesh: every leaf of
+        the masters, ``m`` and ``v`` is all-gathered (``layout``: the
+        state's placements, ``train.steps.mesh_layout``) and copied to the
+        host, the mesh's first rank writes the commit (blocking), and every
+        rank returns once it is published."""
+        from repro_torch.parallel.collectives import all_reduce_, group_for
+        from repro_torch.parallel.sharding import tree_map
+        from repro_torch.train.steps import gather_tree
+        ranks = torch.as_tensor(mesh.mesh).flatten().tolist()
+        writer = torch.distributed.get_rank() == ranks[0]
+
+        def full(tree):
+            out = gather_tree(tree, layout, mesh)
+            return tree_map(lambda t: t.detach().cpu().numpy(), out) if writer else None
+        params, m, v = full(state.params), full(state.opt.m), full(state.opt.v)
+        if writer:
+            host = type(state)(params=params,
+                               opt=type(state.opt)(m, v, state.opt.count.cpu().numpy()),
+                               step=state.step.cpu().numpy())
+            self.save(step, host, clean=clean, version=version, blocking=True)
+        # the commit is published before any rank returns: reading the
+        # reduced flag back waits for every rank's arrival (a NCCL
+        # collective returns to the host before it has run)
+        float(all_reduce_(torch.zeros(1, device=state.step.device),
+                          group_for(mesh, tuple(mesh.mesh_dim_names)))[0])
+
     def wait(self):
         if self._thread is not None:
             self._thread.join()

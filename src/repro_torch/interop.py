@@ -8,7 +8,8 @@ level-hashing ``LevelState`` crosses the same way. A language model's
 weights cross as the reference's parameter tree of numpy arrays
 (``model_params_from_jax``), and a whole training state (f32 masters, AdamW
 moments and count, step) by the checkpoint's key names
-(``train_state_from_jax``, ``train_state_to_numpy``).
+(``train_state_from_jax``, ``train_state_to_numpy``), or straight into this
+rank's shards on a mesh (``train_state_to_mesh``).
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ from repro_torch.core.layout import (NP_DTYPES, PLANE_DTYPES, DashConfig,
 from repro_torch.checkpoint.manager import flatten
 from repro_torch.models.transformer import ModelConfig, Transformer
 from repro_torch.optim.adamw import AdamWState, map_tree
-from repro_torch.train.steps import TrainState, master_meta
+from repro_torch.train.steps import TrainState, master_meta, mesh_layout, take_shard
 
 #: LevelState planes that hold uint32 words (the rest are int32 scalars)
 LEVEL_U32 = ("key_hi", "key_lo", "val", "alloc")
@@ -162,3 +163,50 @@ def train_state_to_numpy(state: TrainState) -> dict:
     """The flat dict of numpy arrays a commit of ``state`` holds, keyed by
     the checkpoint's key names."""
     return {k: v.detach().cpu().numpy() for k, v in flatten(state).items()}
+
+
+def train_state_to_mesh(cfg: ModelConfig, tree_np, mesh, rules=None, device=None) -> TrainState:
+    """This rank's shards of the reference's ``TrainState`` on ``mesh``
+    under ``rules`` (default: the active preset): the numpy state, its flat
+    dict by the checkpoint's keys, or a restored commit's lazy tensors
+    (``CheckpointManager.restore_manifest``), each leaf read only where
+    this rank's slice lies. ``device``: the rank's card unless named."""
+    from repro_torch.launch.mesh import rank_device
+    from repro_torch.parallel import sharding
+    from repro_torch.train.steps import layout_leaves
+    device = rank_device(device)
+    flat = tree_np if isinstance(tree_np, dict) else flatten(tree_np)
+    if rules is None:
+        layout = mesh_layout(cfg, mesh)
+    else:
+        with sharding.use(mesh, rules):
+            layout = mesh_layout(cfg, mesh)
+    want = {f"{head}/" + "/".join(path) for path, _ in layout_leaves(layout)
+            for head in (".params", ".opt/.m", ".opt/.v")} | {".opt/.count", ".step"}
+    if set(flat) != want:
+        raise ValueError(f"keys missing {sorted(want - set(flat))[:8]}, extra "
+                         f"{sorted(set(flat) - want)[:8]}")
+
+    def tree(head):
+        out: dict = {}
+        for path, pl in layout_leaves(layout):
+            a = flat[f"{head}/" + "/".join(path)]
+            shape = a.get().shape if hasattr(a, "get") else a.shape
+            if tuple(shape) != pl.shape:
+                raise ValueError(f"{head}/{'/'.join(path)}: shape {tuple(shape)} for {pl.shape}")
+            node = out
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = take_shard(pl, a, device).float()
+        return out
+
+    def scalar(key):
+        a = flat[key]
+        a = np.asarray(a.get() if hasattr(a, "get") else a)
+        if a.shape != () or a.dtype != np.int32:
+            raise ValueError(f"{key}: {a.dtype}{list(a.shape)} for int32[]")
+        return torch.tensor(int(a), dtype=torch.int32, device=device)
+    return TrainState(params=tree(".params"),
+                      opt=AdamWState(m=tree(".opt/.m"), v=tree(".opt/.v"),
+                                     count=scalar(".opt/.count")),
+                      step=scalar(".step"))

@@ -339,6 +339,59 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Transformer:
 
 
 # ---------------------------------------------------------------------------
+# logical-axis specs (parallel/sharding.py maps them to mesh axes)
+# ---------------------------------------------------------------------------
+
+EMBED, HEADS, KV, HEAD_DIM, MLP, VOCAB, EXPERT, LAYERS, RNN = (
+    "embed", "heads", "kv", "head_dim", "mlp", "vocab", "expert", "layers", "rnn")
+
+_SPECS = {
+    "norm": {"scale": (EMBED,)},
+    "attn": {"wq": (EMBED, HEADS), "wk": (EMBED, KV), "wv": (EMBED, KV), "wo": (HEADS, EMBED)},
+    "mlp": {"w_gate": (EMBED, MLP), "w_up": (EMBED, MLP), "w_down": (MLP, EMBED)},
+    "moe": {"router": (EMBED, None), "w_gate": (EXPERT, EMBED, MLP),
+            "w_up": (EXPERT, EMBED, MLP), "w_down": (EXPERT, MLP, EMBED)},
+    "rnn": {"w_x": (EMBED, RNN), "w_gate": (EMBED, RNN), "w_out": (RNN, EMBED),
+            "conv_w": (None, RNN), "w_rg": (RNN, RNN), "w_ig": (RNN, RNN), "lam": (RNN,)},
+    "tm": {"w_r": (EMBED, HEADS), "w_k": (EMBED, HEADS), "w_v": (EMBED, HEADS),
+           "w_g": (EMBED, HEADS), "w_o": (HEADS, EMBED), "w_decay": (EMBED, HEADS),
+           "decay_base": (HEADS,), "bonus_u": (HEADS,), "mix_r": (EMBED,), "mix_kv": (EMBED,),
+           "cm_k": (EMBED, MLP), "cm_v": (MLP, EMBED)},
+}
+
+
+def _block_specs(kind: str) -> dict:
+    s = {"norm1": _SPECS["norm"], "norm2": _SPECS["norm"]}
+    if kind in ATTENTION_KINDS:
+        s["attn"] = _SPECS["attn"]
+        s["moe" if kind == "moe" else "mlp"] = _SPECS["moe" if kind == "moe" else "mlp"]
+    elif kind == "rglru":
+        s.update(rnn=_SPECS["rnn"], mlp=_SPECS["mlp"])
+    elif kind == "rwkv":
+        s["tm"] = _SPECS["tm"]
+    else:
+        raise ValueError(kind)
+    return s
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The reference's spec tree of ``cfg``'s parameters: the parameter
+    tree's keys, each leaf a tuple of logical axis names (``blocks_<pi>``
+    leaves led by ``"layers"``)."""
+    specs: dict = {}
+    if cfg.family != "audio":
+        specs["embed"] = {"table": (VOCAB, EMBED)}
+    for pi, kind in enumerate(cfg.pattern):
+        specs[f"blocks_{pi}"] = {k: {n: (LAYERS,) + t for n, t in v.items()}
+                                 for k, v in _block_specs(kind).items()}
+    for ti, kind in enumerate(cfg.tail):
+        specs[f"tail_{ti}"] = _block_specs(kind)
+    specs["norm_f"] = _SPECS["norm"]
+    specs["lm_head"] = {"w": (EMBED, VOCAB)}
+    return specs
+
+
+# ---------------------------------------------------------------------------
 # train forward and loss
 # ---------------------------------------------------------------------------
 

@@ -73,13 +73,16 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def update(cfg: AdamWConfig, grads, state: AdamWState, params, lr):
+def update(cfg: AdamWConfig, grads, state: AdamWState, params, lr, gnorm=None):
     """One AdamW step, in place: ``params`` (f32), ``state.m``, ``state.v``
     and ``state.count`` are updated leaf by leaf. ``grads`` matches
     ``params`` leaf for leaf (any float dtype; used in f32); ``lr`` is an f32
-    0-d tensor or a float. Returns (params, state, {"grad_norm"}), the same
-    objects, like the reference's (new_params, new_state, metrics)."""
-    gnorm = global_norm(grads)
+    0-d tensor or a float. ``gnorm``, when given, is the global norm to clip
+    by (a sharded state's, counted over every rank); else ``grads``' own.
+    Returns (params, state, {"grad_norm"}), the same objects, like the
+    reference's (new_params, new_state, metrics)."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     state.count.add_(1)
     count = state.count.float()

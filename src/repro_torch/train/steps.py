@@ -20,17 +20,32 @@ cotangent is bf16 too before it is widened. AdamW widens it to f32. At
 full width the state costs about 16 bytes a parameter on the card: f32
 masters, ``m`` and ``v`` (12), and the bf16 working weights and their
 gradients (4).
+
+On a mesh (``make_mesh_train_step``, ZeRO-3 under ``train_dp`` and
+``train_dp_ep``) a rank holds only its shards of the masters, ``m`` and
+``v`` (each leaf's placement from ``param_specs`` and the rules), and the
+working model is gathered from them each step: 12 bytes a parameter
+divided by the ranks, plus the full working weights and gradients.
 """
 from __future__ import annotations
 
+import dataclasses
+
+import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from repro_torch.models.moe import mesh_variant
 from repro_torch.models.transformer import (ModelConfig, Transformer, forward_train, loss_fn,
-                                            serve_step)
+                                            param_specs, serve_step)
 from repro_torch.optim import adamw
 from repro_torch.optim.schedule import cosine_warmup
+from repro_torch.parallel import sharding
+from repro_torch.parallel.collectives import (all_reduce_, gather, group_for, reduce_scatter,
+                                              reserve_staging)
+from repro_torch.parallel.sharding import mesh_shape, spec_axes
 
 
 class TrainState(NamedTuple):
@@ -192,7 +207,14 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig = adamw.AdamWCo
     the working model, then AdamW on the masters at ``cosine_warmup(step)``;
     ``state`` is updated in place and returned. The working model is made
     on the first call and kept while the state's trees stay the same
-    objects. ``metrics``: loss, ce, aux, lr, grad_norm (0-d tensors)."""
+    objects. ``metrics``: loss, ce, aux, lr, grad_norm (0-d tensors).
+
+    Under a mesh (``sharding.use(mesh, rules)`` when the step is made) the
+    step is ``make_mesh_train_step``'s: the state holds this rank's shards
+    and the batch is the global one. Only the ZeRO-3 presets run there."""
+    mesh = sharding.active_mesh()
+    if mesh is not None:
+        return make_mesh_train_step(cfg, mesh, sharding.active_rules_name(), opt_cfg, peak_lr)
     held = {}
 
     def step(state: TrainState, batch):
@@ -228,4 +250,275 @@ def make_serve_step(cfg: ModelConfig):
     def step(params: Transformer, state, inputs):
         return serve_step(params, cfg, state, inputs)
 
+    return step
+
+
+# ---------------------------------------------------------------------------
+# training on a mesh: ZeRO-3 (train_dp, train_dp_ep)
+# ---------------------------------------------------------------------------
+
+def layout_leaves(layout, path=()):
+    """(path, placement) of every leaf of ``layout``, keys sorted (the
+    order ``adamw.leaves`` walks a tree in)."""
+    if isinstance(layout, dict):
+        return [x for k in sorted(layout) for x in layout_leaves(layout[k], path + (k,))]
+    return [(path, layout)]
+
+
+def mesh_layout(cfg: ModelConfig, mesh=None, rules=None) -> dict:
+    """This rank's ``Placement`` of every leaf of ``cfg``'s master tree on
+    ``mesh`` under ``rules`` (default: the active pair), from
+    ``param_specs``."""
+    return sharding.tree_shardings(param_specs(cfg), mesh, rules, shape_tree=master_meta(cfg))
+
+
+def take_shard(placement, full, device) -> torch.Tensor:
+    """A copy of this rank's shard of ``full`` (a tensor, a numpy array or
+    a commit's lazy tensor) on ``device``."""
+    if hasattr(full, "get"):
+        full = full.get()
+    if isinstance(full, np.ndarray):
+        idx = tuple(slice(a, a + n) for a, n in placement.slices)
+        return torch.from_numpy(np.array(full[idx])).to(device)
+    out = torch.empty(placement.local_shape, dtype=full.dtype, device=device)
+    return out.copy_(placement.take(full))
+
+
+def shard_tree(tree, layout, device) -> dict:
+    """This rank's shards (copies on ``device``) of a tree of full leaves."""
+    return sharding.tree_map(lambda pl, full: take_shard(pl, full, device), layout, tree)
+
+
+def gather_leaf(shard: torch.Tensor, placement, mesh) -> torch.Tensor:
+    """The full leaf from every rank's shard (collective over the leaf's
+    sharded axes; no gradient)."""
+    for d, entry in enumerate(placement.spec):
+        if entry is not None:
+            shard = gather(shard, group_for(mesh, spec_axes(entry)), d)
+    return shard
+
+
+def gather_tree(tree, layout, mesh) -> dict:
+    """The full leaves of a tree of shards (collective)."""
+    return sharding.tree_map(lambda pl, t: gather_leaf(t, pl, mesh), layout, tree)
+
+
+def init_mesh_state(cfg: ModelConfig, seed: int, mesh, device, layout=None) -> TrainState:
+    """This rank's shards of the step-0 state ``trainer.init_state(cfg,
+    seed, ...)`` draws: the f32 initialisation is drawn whole on ``device``
+    (the same draws on every rank) and only this rank's shards are kept."""
+    from repro_torch.models.transformer import init_params
+    layout = layout or mesh_layout(cfg, mesh)
+    model = init_params(dataclasses.replace(cfg, dtype="float32"), seed, device)
+    shards: dict = {}
+    flat = dict(layout_leaves(layout))
+    for path, index, p in param_paths(model):
+        pl = flat[path]
+        if index is None:
+            _put(shards, path, take_shard(pl, p.detach(), device))
+            continue
+        one = pl._replace(slices=pl.slices[1:])
+        if index == 0:
+            _put(shards, path, torch.empty(pl.local_shape, dtype=torch.float32, device=device))
+        _at(shards, path)[index].copy_(one.take(p.detach()))
+    del model
+    return train_state_init(shards)
+
+
+def _unmentioned(placement, mesh) -> tuple:
+    """The mesh axes a leaf is replicated over (in the mesh's order)."""
+    used = {a for e in placement.spec for a in spec_axes(e)}
+    return tuple(a for a in mesh.mesh_dim_names if a not in used)
+
+
+class _Leaf:
+    """One leaf of the master tree on this rank: its placement, master /
+    ``m`` / ``v`` shards, the working model's parameters that use it
+    ((index, parameter)), and either a full working buffer gathered from
+    the masters each step or, for an MoE shard_map variant's expert
+    leaves, none (the parameters are views of the master shard)."""
+
+    def __init__(self, path, placement, master, m, v, variant: bool):
+        self.path, self.placement = path, placement
+        self.master, self.m, self.v = master, m, v
+        self.variant = variant
+        self.params: list = []
+        self.work = None
+
+
+class MeshBound(NamedTuple):
+    model: Transformer
+    leaves: list
+    mesh: object
+    world: object
+
+
+def _variant_leaves(cfg: ModelConfig) -> bool:
+    """Whether an MoE's weights stay shards under the active rules (the
+    variant int8-gathers them itself)."""
+    if cfg.n_experts == 0:
+        return False
+    return mesh_variant(cfg.moe_cfg(), cfg.d_model, 1) not in (None, "dense")
+
+
+def bind_mesh(cfg: ModelConfig, params: dict, m: dict, v: dict, mesh, layout) -> MeshBound:
+    """A full ``Transformer`` on the shards' device whose weights are the
+    working copies of the masters: a gathered buffer a leaf (in the
+    weight's dtype; ``refresh_mesh`` fills it), except the MoE leaves an
+    MoE variant gathers itself, whose weights are the f32 master shards."""
+    device = adamw.leaves(params)[0].device
+    model = Transformer(cfg, device)
+    variant = _variant_leaves(cfg)
+    by_path = {}
+    for path, pl in layout_leaves(layout):
+        by_path[path] = _Leaf(path, pl, _at(params, path), _at(m, path), _at(v, path),
+                              variant and "moe" in path)
+    for path, index, p in param_paths(model):
+        leaf = by_path[path]
+        if leaf.variant:
+            p.data = leaf.master if index is None else leaf.master[index]
+        else:
+            if leaf.work is None:
+                leaf.work = torch.empty(leaf.placement.shape, dtype=p.dtype, device=device)
+            p.data = leaf.work if index is None else leaf.work[index]
+        p.requires_grad_(True)
+        leaf.params.append((index, p))
+    if device.type == "cuda":
+        # the largest tensor a step stages: a leaf's full working copy, or
+        # its full gradient in the same dtype
+        reserve_staging(max(l.work.numel() * l.work.element_size()
+                            for l in by_path.values() if l.work is not None))
+    return MeshBound(model, list(by_path.values()), mesh,
+                     group_for(mesh, tuple(mesh.mesh_dim_names)))
+
+
+@torch.no_grad()
+def refresh_mesh(b: MeshBound) -> None:
+    """Each gathered leaf's working buffer from the masters: every shard
+    rounded to the weight's dtype (nearest even), then all-gathered."""
+    for leaf in b.leaves:
+        if not leaf.variant:
+            leaf.work.copy_(gather_leaf(leaf.master.to(leaf.work.dtype), leaf.placement, b.mesh))
+
+
+@torch.no_grad()
+def _sync_grads(b: MeshBound) -> list:
+    """Each leaf's gradient shard, summed over the ranks: a gathered leaf's
+    full gradient reduce-scattered over its sharded axes (in the weight's
+    dtype), a variant's shard as its gather's backward left it; then
+    all-reduced over the axes the leaf is replicated on."""
+    out = []
+    for leaf in b.leaves:
+        gs = [torch.zeros_like(p) if p.grad is None else p.grad for _, p in leaf.params]
+        g = gs[0] if leaf.params[0][0] is None else torch.stack(gs)
+        if not leaf.variant:
+            for d, entry in enumerate(leaf.placement.spec):
+                if entry is not None:
+                    g = reduce_scatter(g, group_for(b.mesh, spec_axes(entry)), d)
+        rest = _unmentioned(leaf.placement, b.mesh)
+        if rest:
+            all_reduce_(g, group_for(b.mesh, rest))
+        out.append(g)
+        for _, p in leaf.params:
+            p.grad = None
+    return out
+
+
+@torch.no_grad()
+def _mesh_norm(b: MeshBound, grads: list) -> torch.Tensor:
+    """The global norm of the gradient with each element counted once: a
+    shard's squares over its replicas, summed over the world."""
+    sizes = mesh_shape(b.mesh)
+    total = sum(torch.sum(torch.square(g.float()))
+                / math.prod(sizes[a] for a in _unmentioned(leaf.placement, b.mesh))
+                for leaf, g in zip(b.leaves, grads))
+    return torch.sqrt(all_reduce_(total.reshape(1), b.world)[0])
+
+
+def _mesh_loss(model: Transformer, cfg: ModelConfig, batch, world, aux_weight: float = 0.01,
+               z_weight: float = 1e-4):
+    """This rank's share of the reference's loss over the GLOBAL batch: the
+    masked sums over its rows divided by the all-reduced mask count, plus
+    its share of the aux loss (the MoE variants average it over the ranks
+    already). The shares sum to the loss. Returns (share, (loss, ce, aux)),
+    the metrics global."""
+    logits, aux = forward_train(model, cfg, batch)
+    labels = batch["labels"]
+    if cfg.family == "vlm":
+        logits = logits[:, -labels.shape[1]:]
+    mask = (labels >= 0).float()
+    safe = torch.clamp(labels, min=0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+    sums = torch.stack([torch.sum((lse - ll) * mask), torch.sum(torch.square(lse) * mask),
+                        mask.sum()])
+    totals = all_reduce_(sums.detach().clone(), world)
+    n = torch.clamp(totals[2], min=1.0)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=logits.device)
+    share = sums[0] / n + aux_weight * aux / world.size + z_weight * sums[1] / n
+    ce = totals[0] / n
+    loss = ce + aux_weight * aux.detach() + z_weight * (totals[1] / n)
+    return share, (loss, ce, aux.detach())
+
+
+def local_rows(batch: dict, world) -> dict:
+    """This rank's rows of the global batch: rows split over every rank, in
+    the order of the rank's index over the mesh (the first axis major), as
+    the batch axes shard them."""
+    B = next(iter(batch.values())).shape[0]
+    if B % world.size:
+        raise ValueError(f"a global batch of {B} rows does not split over {world.size} ranks")
+    n = B // world.size
+    return {k: v[world.index * n:(world.index + 1) * n] for k, v in batch.items()}
+
+
+def make_mesh_train_step(cfg: ModelConfig, mesh, rules: str,
+                         opt_cfg: adamw.AdamWConfig = adamw.AdamWConfig(),
+                         peak_lr: float = 3e-4):
+    """The ZeRO-3 train step on ``mesh`` under ``rules`` (``train_dp`` or
+    ``train_dp_ep``): (state of this rank's shards, the global batch) ->
+    (state, metrics), updated in place, every rank calling it together.
+
+    Each step gathers the working model from the master shards (each shard
+    rounded to the weight's dtype, then all-gathered; an MoE variant's
+    expert leaves are int8-gathered inside the variant instead), runs the
+    forward and backward on this rank's rows, reduce-scatters each sharded
+    leaf's gradient and all-reduces each replicated one, takes the global
+    norm over every rank and runs AdamW on the local shards. The metrics
+    (loss, ce, aux, lr, grad_norm) are the global ones, the same on every
+    rank. ``step.held["grads"]`` keeps the last step's gradient shards.
+    Any other preset raises: the TP+SP and serving presets do not run on a
+    mesh in the port."""
+    if rules not in sharding.MESH_PRESETS:
+        raise ValueError(f"preset {rules!r} does not run on a mesh in the port (only "
+                         f"{', '.join(sharding.MESH_PRESETS)}: the TP+SP and serving presets "
+                         f"are a later slice)")
+    with sharding.use(mesh, rules):
+        layout = mesh_layout(cfg, mesh)
+    held: dict = {}
+
+    def step(state: TrainState, batch):
+        with sharding.use(mesh, rules):
+            trees = (state.params, state.opt.m, state.opt.v)
+            if held.get("trees") is None or any(a is not b for a, b in zip(held["trees"], trees)):
+                held["trees"] = trees
+                held["bound"] = bind_mesh(cfg, *trees, mesh, layout)
+            b = held["bound"]
+            rows = local_rows(batch, b.world)
+            refresh_mesh(b)
+            share, (loss, ce, aux) = _mesh_loss(b.model, cfg, rows, b.world)
+            share.backward()
+            grads = _sync_grads(b)
+            gnorm = _mesh_norm(b, grads)
+            lr = cosine_warmup(state.step, peak_lr=peak_lr)
+            adamw.update(opt_cfg, grads,
+                         adamw.AdamWState([l.m for l in b.leaves], [l.v for l in b.leaves],
+                                          state.opt.count),
+                         [l.master for l in b.leaves], lr, gnorm=gnorm)
+            state.step.add_(1)
+            held["grads"] = grads
+        return state, {"loss": loss, "ce": ce, "aux": aux, "lr": lr, "grad_norm": gnorm}
+
+    step.held = held
+    step.layout = layout
     return step

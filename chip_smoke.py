@@ -90,6 +90,10 @@ Phases, each printed on its own line and each able to fail the run:
      read sojourn with flush-on-publish, scrubbed rows, both reopen times,
      the first read, free disk and the busy share of 50 traced ticks.
      Launch counters as on the main path;
+  8-10 run in a second process on the card (the side lane), started
+     after phase 2, beside phases 3-7c, 12 and 13 of this one: the host
+     drives every path, one core a process. Each process holds the card's
+     lock while it times kernels or runs a model phase;
   8. the LH path: a DashLH in the paper's geometry (``max_segments=32768,
      num_stash=4``, ~445 MB of planes) loaded with unique uniform keys in
      batches sized to its stride growth, then the main path's reads,
@@ -146,9 +150,9 @@ Phases, each printed on its own line and each able to fail the run:
      wall time, read sojourn p50/p99, the busy share of a traced read
      batch; the kernels held to their plain versions on shard-local
      batches; the same path on a one-rank NCCL group at 65,536 keys. Past
-     the run's budget (1050 s, ``RUN_BUDGET_S``) the baselines' apps are
-     halved, then yi-6b's third round goes, then the DHT's key count is
-     cut (each logged).
+     the run's budget (800 s, ``RUN_BUDGET_S``) the baselines' apps are
+     halved, yi-6b's third round goes, and the DHT's key count is cut
+     (each logged).
  12. LM serving at full width (run before 11, with 12b, so that the run's
      budget can still cut the DHT's keys): yi-6b at its published widths and
      depth (32 layers, d_model 4096, 32 heads, GQA 4, d_ff 11008, vocab
@@ -220,26 +224,31 @@ Phases, each printed on its own line and each able to fail the run:
 
  13b. training on a mesh (inside phase 11's 4 gloo card ranks, before
      their DHT work; the ranks are the DHT's, so the phase pays no spawn of
-     its own): a 2 x 2 (data x model) ``DeviceMesh`` under ``train_dp``,
-     yi-6b at its published widths on 4 layers, ZeRO-3 (masters, ``m`` and
-     ``v`` sharded on each leaf's embed dim over both axes), drawn from seed
-     0 as phase 13's, 3 steps on phase 13's first 3 batches (one row a
-     rank), every collective staged through pinned host buffers (gloo on
-     one card: not a multi-GPU result). Checks: the losses within one bf16
-     roundoff of phase 13's first 3 and equal on every rank, 16 embedding
-     rows, layer 0's wq and the final norm within 2.1 x the steps' summed
-     learning rates of phase 13's after 3 steps; ``compressed_psum`` over
-     'data' of three first-step gradient shards equal to its formula
+     its own): a 2 x 2 (data x model) ``DeviceMesh``, yi-6b at its
+     published widths on 4 layers, drawn from seed 0 as phase 13's, 2
+     steps on phase 13's first 2 batches under each preset of
+     ``MESH_RUNS``: ``train_dp`` (ZeRO-3: masters, ``m`` and ``v`` sharded
+     on each leaf's embed dim over both axes, one row a rank), then
+     ``train`` (FSDP + TP + SP: two rows a data rank, half the sequence a
+     model rank), every collective staged through pinned host buffers
+     (gloo on one card: not a multi-GPU result). Checks, for each preset:
+     the losses within one bf16 roundoff of phase 13's first 2 and equal
+     on every rank, 16 embedding rows, layer 0's wq and the final norm
+     within 2.1 x the steps' summed learning rates of phase 13's;
+     ``compressed_psum`` over 'data' of three first-step gradient shards
+     (under ``train_dp``) equal to its formula
      recomputed on the host; ``moe_apply_shardmap`` (reduced mixtral,
      train_dp) and ``moe_apply_ep_shardmap`` (reduced phi3.5, train_dp_ep)
      on each rank's row within 1e-5 of the same variant computed in one
      process; the elastic runbook at reduced yi-6b (a sharded commit in the
      reference's format, ``shrink_mesh`` to (1, 2), ranks 2 and 3 leave,
-     the restore, the reshard, one step) within the CPU tests' bf16 bounds
-     of the one-device step from the same commit. Prints the steps' times,
-     peak HBM a rank, the bytes a step hands to each collective a rank, and
-     the card's kernel busy share over the traced third step (the four
-     ranks' kernel time summed) beside the host copies' time.
+     the restore, the reshard, one step under ``train``, the default of
+     ``relower_for_mesh``) within the CPU tests' bf16 bounds of the
+     one-device step from the same commit. Prints, for each preset, the
+     steps' times, peak HBM a rank, the bytes a step hands to each
+     collective a rank, and the card's kernel busy share over the traced
+     last step (the four ranks' kernel time summed) beside the host
+     copies' time.
 
 Each kernel's ``launches`` in the JSON line is the sum over the thirteen
 paths driven with counters (the EH main path, the frontend, the durable
@@ -255,6 +264,7 @@ outside a checkout of the repository, it exits nonzero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -328,6 +338,65 @@ KERNELS = {   # name: (source, TPU kernel it replaces)
 #: the run's start on the host's clock: each phase's line ends with the
 #: seconds of the run spent when it is printed
 _RUN_T0 = time.perf_counter()
+
+
+#: what this process shares with the other across the card when the side
+#: lane runs (``side_lane``; None without it): (the timing lock, the step
+#: lock, the main process's wish for the step lock, whether the other
+#: process is still alive, whether this process is the side lane). A
+#: process holds the timing lock while it times kernels or runs a model
+#: phase, so those never overlap each other; the side lane holds the step
+#: lock around each step of its loops, and the main process takes it too
+#: while it times kernels, so the side lane's card work stops meanwhile
+_LANES = None
+
+
+def _take(lock) -> None:
+    while not lock.acquire(timeout=1.0):
+        check(_LANES[3](), "the process across the card's locks died")
+
+
+@contextlib.contextmanager
+def quiet_card(pause_side: bool = False):
+    """The timing lock for the block (when the side lane runs); with
+    ``pause_side`` (the main process's timed kernels) the step lock too."""
+    if _LANES is None:
+        yield
+        return
+    timing, step, wanted, _, _ = _LANES
+    _take(timing)
+    try:
+        if not pause_side:
+            yield
+            return
+        wanted.set()
+        try:
+            _take(step)
+        finally:
+            wanted.clear()
+        try:
+            yield
+        finally:
+            step.release()
+    finally:
+        timing.release()
+
+
+@contextlib.contextmanager
+def side_step():
+    """One step of a loop: in the side lane it holds the step lock, after
+    waiting while the main process wants it; elsewhere it does nothing. No
+    timing lock is taken inside a step."""
+    if _LANES is None or not _LANES[4]:
+        yield
+        return
+    while _LANES[2].is_set():
+        time.sleep(0.002)
+    _take(_LANES[1])
+    try:
+        yield
+    finally:
+        _LANES[1].release()
 
 
 def log(msg: str) -> None:
@@ -1404,12 +1473,13 @@ def phase_main_path(cfg, n_keys: int, n_ticks: int, report, table: str = "DashEH
     while done < n_keys:
         n = min(batch_keys(t), n_keys - done)
         batch = (keys[done:done + n], vals[done:done + n])
-        if load_trace is None and done >= n_keys // 2 and DEVICE == "cuda":
-            # one traced batch: the card's busy share during the load
-            *load_trace, st = busy_share(lambda: t.insert(*batch, max_retries=retries))
-            load_trace.append(n)
-        else:
-            st = t.insert(*batch, max_retries=retries)
+        with side_step():
+            if load_trace is None and done >= n_keys // 2 and DEVICE == "cuda":
+                # one traced batch: the card's busy share during the load
+                *load_trace, st = busy_share(lambda: t.insert(*batch, max_retries=retries))
+                load_trace.append(n)
+            else:
+                st = t.insert(*batch, max_retries=retries)
         check((st == 0).all(), f"load batch {n_batches}: statuses {np.bincount(st)}")
         done += n
         n_batches += 1
@@ -1427,13 +1497,14 @@ def phase_main_path(cfg, n_keys: int, n_ticks: int, report, table: str = "DashEH
     B = 1 << 20
     t0 = time.perf_counter()
     n_hit = 0
-    for a in range(0, min(n_keys, 4 * B), B):
-        f, v = t.search(keys[a:a + B])
-        check(f.all() and (v == vals[a:a + B]).all(), f"search batch at {a} wrong")
-        n_hit += f.size
-    f, _ = t.search(misses)
-    check(not f.any(), "a missing key was found")
-    sync()
+    with side_step():
+        for a in range(0, min(n_keys, 4 * B), B):
+            f, v = t.search(keys[a:a + B])
+            check(f.all() and (v == vals[a:a + B]).all(), f"search batch at {a} wrong")
+            n_hit += f.size
+        f, _ = t.search(misses)
+        check(not f.any(), "a missing key was found")
+        sync()
     search_s = time.perf_counter() - t0
     n_searched = n_hit + misses.size
     log(f"  {name}: searched {n_searched} keys in 1M batches, {search_s:.2f}s "
@@ -1448,10 +1519,11 @@ def phase_main_path(cfg, n_keys: int, n_ticks: int, report, table: str = "DashEH
                             misses[rng.integers(0, misses.size, 64)]])
         new = tick_new[64 * i:64 * (i + 1)]
         new_vals = (np.arange(new.size, dtype=np.uint32) + 64 * i) ^ np.uint32(0xA5A5A5A5)
-        s = time.perf_counter()
-        f, v = t.search(q)
-        st = t.insert(new, new_vals, max_retries=retries)
-        lat.append(time.perf_counter() - s)
+        with side_step():
+            s = time.perf_counter()
+            f, v = t.search(q)
+            st = t.insert(new, new_vals, max_retries=retries)
+            lat.append(time.perf_counter() - s)
         check(f[:128].all() and not f[128:].any(), f"tick {i}: wrong found mask")
         check((st == 0).all(), f"tick {i}: insert statuses {np.bincount(st)}")
         live_extra.append((new, new_vals))
@@ -1471,8 +1543,10 @@ def phase_main_path(cfg, n_keys: int, n_ticks: int, report, table: str = "DashEH
                 check(f[:128].all() and not f[128:].any() and (st == 0).all(),
                       f"traced tick {i} wrong")
                 live_extra.append((new, new_vals))
+        with side_step():
+            ticks_trace = busy_share(traced_ticks)[:3]
         for what, (wall, busy, top) in (
-                ("50 ticks", busy_share(traced_ticks)[:3]),
+                ("50 ticks", ticks_trace),
                 (f"one load batch of {load_trace[3]} keys", load_trace[:3])):
             log(f"  trace {name} {what}: wall {wall * 1e3:.1f} ms, card busy {busy * 1e3:.1f} ms "
                 f"(idle share {1 - busy / wall:.3f}); top: "
@@ -1482,16 +1556,18 @@ def phase_main_path(cfg, n_keys: int, n_ticks: int, report, table: str = "DashEH
     n_mut = min(65536, n_keys // 4)
     pick = rng.permutation(n_keys)[:2 * n_mut]
     dele, upd = pick[:n_mut], pick[n_mut:]
-    check((t.delete(keys[dele]) == 0).all(), "a delete missed")
     new_vals = vals[upd] ^ np.uint32(0x5A5A5A5A)
-    check((t.update(keys[upd], new_vals) == 0).all(), "an update missed")
+    with side_step():
+        check((t.delete(keys[dele]) == 0).all(), "a delete missed")
+        check((t.update(keys[upd], new_vals) == 0).all(), "an update missed")
     truth = vals.copy()
     truth[upd] = new_vals
     alive = np.ones(n_keys, bool)
     alive[dele] = False
     t0 = time.perf_counter()
     for a in range(0, n_keys, B):
-        f, v = t.search(keys[a:a + B])
+        with side_step():
+            f, v = t.search(keys[a:a + B])
         check((f == alive[a:a + B]).all(), f"verify batch at {a}: found mask wrong")
         check((v[f] == truth[a:a + B][f]).all(), f"verify batch at {a}: values wrong")
     extra_k = np.concatenate([k for k, _ in live_extra])
@@ -2357,8 +2433,9 @@ def phase_shrink(cfg, n_keys: int = SHRINK_KEYS, n_fresh: int = SHRINK_KEYS // 2
     done = 0
     while done < n_keys:
         n = min(eh_batch(t), n_keys - done)
-        check((t.insert(keys[done:done + n], vals[done:done + n]) == 0).all(),
-              "shrink load failed")
+        with side_step():
+            st = t.insert(keys[done:done + n], vals[done:done + n])
+        check((st == 0).all(), "shrink load failed")
         done += n
     n_gone = n_keys * 4 // 5
     check((t.delete(keys[:n_gone]) == 0).all(), "a shrink-phase delete missed")
@@ -2378,8 +2455,9 @@ def phase_shrink(cfg, n_keys: int = SHRINK_KEYS, n_fresh: int = SHRINK_KEYS // 2
     recycled, wm = 0, t.n_segments
     for a in range(0, n_fresh, 1 << 17):
         free0 = len(t.free_segments)
-        check((t.insert(fresh[a:a + (1 << 17)], vals[n_keys + a:n_keys + a + (1 << 17)])
-               == 0).all(), "a refill insert failed")
+        with side_step():
+            st = t.insert(fresh[a:a + (1 << 17)], vals[n_keys + a:n_keys + a + (1 << 17)])
+        check((st == 0).all(), "a refill insert failed")
         recycled += free0 - len(t.free_segments)
         check(t.n_segments == wm or not t.free_segments,
               "the watermark grew while freed ids were left")
@@ -2474,14 +2552,15 @@ def _baseline_load(name, t, keys, vals, batch_keys, trace: bool):
         while done < end:
             n = min(batch_keys(t), end - done)
             batch = (keys[done:done + n], vals[done:done + n])
-            if (trace and part == 8 and DEVICE == "cuda"
-                    and (traced is None or not any("kernel" in k for k, _ in traced[2]))):
-                # the profiler records no kernel in some runs (at most
-                # a copy): then the next batch is traced instead
-                *traced, st = busy_share(lambda: t.insert(*batch))
-                traced.append(n)
-            else:
-                st = t.insert(*batch)
+            with side_step():
+                if (trace and part == 8 and DEVICE == "cuda"
+                        and (traced is None or not any("kernel" in k for k, _ in traced[2]))):
+                    # the profiler records no kernel in some runs (at most
+                    # a copy): then the next batch is traced instead
+                    *traced, st = busy_share(lambda: t.insert(*batch))
+                    traced.append(n)
+                else:
+                    st = t.insert(*batch)
             check((st == 0).all(), f"{name} load at {done}: statuses {np.bincount(st)}")
             done += n
             n_batches += 1
@@ -2605,12 +2684,13 @@ def _prefix_cache_app(card: str, n_prompts: int = PREFIX_PROMPTS,
     match_s, t0 = 0.0, time.perf_counter()
     for i in range(n_prompts):
         tokens = np.concatenate([prefixes[rng.integers(0, 64)], rng.integers(1, 32000, 64)])
-        s = time.perf_counter()
-        _, n = cache.match_prefix(tokens)
-        match_s += time.perf_counter() - s
-        cache.admit(tokens, n // BLOCK)
-        if i % 50 == 49:
-            check(cache.match_prefix(tokens)[1] == 256, f"prompt {i}: not cached after admit")
+        with side_step():
+            s = time.perf_counter()
+            _, n = cache.match_prefix(tokens)
+            match_s += time.perf_counter() - s
+            cache.admit(tokens, n // BLOCK)
+            again = cache.match_prefix(tokens)[1] if i % 50 == 49 else 256
+        check(again == 256, f"prompt {i}: not cached after admit")
     total_s = time.perf_counter() - t0
     st = cache.stats
     check(st.evictions > 0, "prefix cache: no eviction ran")
@@ -2638,7 +2718,8 @@ def _dedup_app(card: str, n_batches: int = DEDUP_BATCHES):
     b = PackedBatcher(pc, dedup=d)
     t0 = time.perf_counter()
     for _ in range(n_batches):
-        b.next_batch()
+        with side_step():
+            b.next_batch()
     s = time.perf_counter() - t0
     check(b.docs_skipped > 0 and d.unique_docs == b.docs_seen - b.docs_skipped,
           f"dedup: {b.docs_seen} seen, {b.docs_skipped} skipped, {d.unique_docs} unique")
@@ -2716,19 +2797,20 @@ def phase_baselines(report, card: str, n_keys: int = BASE_KEYS, cut_apps: bool =
         batch_keys = (lambda t: LEVEL_BATCH) if lvl else eh_batch
         load_s, curve, traced, n_batches, largest = _baseline_load(
             name, t, keys, vals, batch_keys, trace=name in ("CCEH", "level hashing"))
-        t0 = time.perf_counter()
-        f, v = t.search(keys[:B])
-        sync()
-        pos_s = time.perf_counter() - t0
-        n_pos = f.size
-        check(f.all() and (v == vals[:B]).all(), f"{name}: a loaded key is wrong")
-        for a in range(B, n_keys, B):
-            f, v = t.search(keys[a:a + B])
-            check(f.all() and (v == vals[a:a + B]).all(), f"{name}: a loaded key is wrong")
-        t0 = time.perf_counter()
-        f, _ = t.search(misses)
-        sync()
-        neg_s = time.perf_counter() - t0
+        with side_step():
+            t0 = time.perf_counter()
+            f, v = t.search(keys[:B])
+            sync()
+            pos_s = time.perf_counter() - t0
+            n_pos = f.size
+            check(f.all() and (v == vals[:B]).all(), f"{name}: a loaded key is wrong")
+            for a in range(B, n_keys, B):
+                f, v = t.search(keys[a:a + B])
+                check(f.all() and (v == vals[a:a + B]).all(), f"{name}: a loaded key is wrong")
+            t0 = time.perf_counter()
+            f, _ = t.search(misses)
+            sync()
+            neg_s = time.perf_counter() - t0
         check(not f.any(), f"{name}: an absent key was found")
         shape = (f"k {int(t.state.k)}, {int(t.state.n_rehashes)} rehashes" if lvl else
                  f"{t.n_segments} segments, global depth {t.global_depth}, "
@@ -2760,45 +2842,48 @@ def phase_baselines(report, card: str, n_keys: int = BASE_KEYS, cut_apps: bool =
             f"top: " + "; ".join(f"{k} {v:.2f} ms" for k, v in top))
     del tables["CCEH"]
 
-    # ---- kernels on the Bucketized planes, Fig. 13 ----
-    _bucketized_kernels(tables.pop("Bucketized"), keys, misses, report, card)
-    opt_ms, pess_ms = _fig13(tables.pop("Dash-EH"), keys, misses, card)
+    # ---- under the card's lock: both read kernels on the Bucketized planes, ----
+    # ---- Fig. 13, level_scan at the load's batch shape on the loaded table ----
+    with quiet_card():
+        _bucketized_kernels(tables.pop("Bucketized"), keys, misses, report, card)
+        opt_ms, pess_ms = _fig13(tables.pop("Dash-EH"), keys, misses, card)
 
-    # ---- level_scan at the load's batch shape on the loaded table ----
-    t = tables.pop("level hashing")
-    fresh = np.concatenate([distinct_keys(9 << 40, LEVEL_BATCH - 64), keys[:64]])
-    hi, lo = hashing.split_keys(fresh, DEVICE)
-    vv = torch.from_numpy(vals[:LEVEL_BATCH].view(np.int32)).to(DEVICE)
-    valid = torch.ones(LEVEL_BATCH, dtype=torch.bool, device=DEVICE)
-    err, st, plain_s = _level_scan_exact(t.cfg, t.state, hi, lo, vv, valid)
-    counts = np.bincount(st.cpu().numpy(), minlength=5)
-    check(err == 0 and counts[1] == 64, f"level_scan at full size: err {err}, statuses {counts}")
-    base, work = t.state, LevelState(*(x.clone() for x in t.state))
+        t = tables.pop("level hashing")
+        fresh = np.concatenate([distinct_keys(9 << 40, LEVEL_BATCH - 64), keys[:64]])
+        hi, lo = hashing.split_keys(fresh, DEVICE)
+        vv = torch.from_numpy(vals[:LEVEL_BATCH].view(np.int32)).to(DEVICE)
+        valid = torch.ones(LEVEL_BATCH, dtype=torch.bool, device=DEVICE)
+        err, st, plain_s = _level_scan_exact(t.cfg, t.state, hi, lo, vv, valid)
+        counts = np.bincount(st.cpu().numpy(), minlength=5)
+        check(err == 0 and counts[1] == 64,
+              f"level_scan at full size: err {err}, statuses {counts}")
+        base, work = t.state, LevelState(*(x.clone() for x in t.state))
 
-    def reset():         # each launch finds the table as the load left it
-        for w, b in zip(work, base):
-            w.copy_(b)
-    ms = kernel_ms(lambda: level.level_scan(t.cfg, work, hi, lo, vv, valid),
-                   "level_scan_kernel", reps=10, setup=reset)
-    # bytes: the batch in, statuses out, four candidate buckets read (alloc
-    # word + 2 key rows) per key, one record + alloc word written per insert
-    nbytes = LEVEL_BATCH * (13 + 4 + 4 * 36) + counts[0] * 16
-    by_bytes = bound(nbytes, ops=LEVEL_BATCH * 100.0)
-    # the operations that bound it: each key's step reads what the previous
-    # one wrote, so its dependent loads form one chain, one round trip a key
-    # and two where no candidate has room, at one per measured load latency
-    load_ns = report.get("fused_probe", {}).get("load_ns", float("nan"))
-    levels = LEVEL_BATCH + counts[2]
-    chain_ms = levels * load_ns * 1e-6
-    report["level_scan"].update(
-        max_abs_err=err, ms=ms, plain_ms=plain_s * 1e3, byte_bound=by_bytes,
-        bound=(chain_ms, "operations") if chain_ms > by_bytes[0] else by_bytes,
-        shape=f"{LEVEL_BATCH}-key batch", chain=(levels, load_ns))
-    log(f"  baselines [{card}]: level_scan exact at the load's shape ({LEVEL_BATCH} keys into the "
-        f"loaded table: {counts[0]} inserted, {counts[1]} exist, {counts[2]} need a rehash); "
-        f"{ms * 1e3:.1f} us on the card ({ms / LEVEL_BATCH * 1e6:.1f} ns a key), plain "
-        f"{plain_s * 1e3:.1f} ms; bound {chain_ms * 1e3:.1f} us by its chain of {levels} "
-        f"dependent loads x {load_ns:.1f} ns (byte bound {by_bytes[0] * 1e3:.3f} us)")
+        def reset():         # each launch finds the table as the load left it
+            for w, b in zip(work, base):
+                w.copy_(b)
+        ms = kernel_ms(lambda: level.level_scan(t.cfg, work, hi, lo, vv, valid),
+                       "level_scan_kernel", reps=10, setup=reset)
+        # bytes: the batch in, statuses out, four candidate buckets read (alloc
+        # word + 2 key rows) per key, one record + alloc word written per insert
+        nbytes = LEVEL_BATCH * (13 + 4 + 4 * 36) + counts[0] * 16
+        by_bytes = bound(nbytes, ops=LEVEL_BATCH * 100.0)
+        # the operations that bound it: each key's step reads what the previous
+        # one wrote, so its dependent loads form one chain, one round trip a key
+        # and two where no candidate has room, at one per measured load latency
+        load_ns = report.get("fused_probe", {}).get("load_ns", float("nan"))
+        levels = LEVEL_BATCH + counts[2]
+        chain_ms = levels * load_ns * 1e-6
+        report["level_scan"].update(
+            max_abs_err=err, ms=ms, plain_ms=plain_s * 1e3, byte_bound=by_bytes,
+            bound=(chain_ms, "operations") if chain_ms > by_bytes[0] else by_bytes,
+            shape=f"{LEVEL_BATCH}-key batch", chain=(levels, load_ns))
+        log(f"  baselines [{card}]: level_scan exact at the load's shape ({LEVEL_BATCH} keys "
+            f"into the loaded table: {counts[0]} inserted, {counts[1]} exist, {counts[2]} need "
+            f"a rehash); "
+            f"{ms * 1e3:.1f} us on the card ({ms / LEVEL_BATCH * 1e6:.1f} ns a key), plain "
+            f"{plain_s * 1e3:.1f} ms; bound {chain_ms * 1e3:.1f} us by its chain of {levels} "
+            f"dependent loads x {load_ns:.1f} ns (byte bound {by_bytes[0] * 1e3:.3f} us)")
     del t, base, work
 
     # ---- the apps ----
@@ -3461,13 +3546,15 @@ DHT_GEOMETRY = (32768, 17)
 DHT_SPLIT_LANES = 1024
 DHT_TIMEOUT = 300.0
 #: the run's own budget (its limit is 1200 s). A cut is taken only when
-#: the time spent and what is left at full size would pass it, in this
-#: order: the baselines' apps (``APPS_CUT``), yi-6b's third serving round,
-#: then the DHT's key count. What is left is reckoned from the phases'
-#: costs on NVIDIA H100 80GB HBM3, 700.00 W (``BASE_PHASE_S``,
+#: the time spent and what is left at full size would pass it: the
+#: baselines' apps (``APPS_CUT``, decided by the side lane), yi-6b's third
+#: serving round, then the DHT's key count. What is left is reckoned from
+#: the phases' costs on NVIDIA H100 80GB HBM3, 700.00 W (``BASE_PHASE_S``,
 #: ``LM_PHASES_S``, ``TRAIN_PHASE_S``, and the DHT's below), whose host
-#: speed swings the whole run by a third
-RUN_BUDGET_S = 1050.0
+#: speed swings the whole run by a third or more: one run that ended at
+#: 1014 s with everything in one process ran past 1200 s on a slower host,
+#: so the budget leaves a third of the limit for such a host
+RUN_BUDGET_S = 800.0
 #: the baselines phase with its apps whole (149.0 s in a run that ended at
 #: 1003 s, 175.8 s in one that ended at 1130 s)
 BASE_PHASE_S = 150.0
@@ -3485,22 +3572,26 @@ DHT_DIR = Path(__file__).resolve().parent / "build" / "dht"
 # ---------------------------------------------------------------------------
 
 #: the mesh phase: yi-6b at its published widths on MESH_LAYERS layers, a
-#: 2 x 2 (data x model) train_dp mesh of the DHT's 4 gloo ranks on the one
-#: card, phase 13's first MESH_STEPS batches (4 x 256 tokens, one row a rank)
+#: 2 x 2 (data x model) mesh of the DHT's 4 gloo ranks on the one card,
+#: phase 13's first MESH_STEPS batches (4 x 256 tokens) under each preset of
+#: MESH_RUNS: ZeRO-3 (one row a rank), then FSDP + TP + SP (two rows a data
+#: rank, half the sequence a model rank)
 MESH_LAYERS = TRAIN_LAYERS
-MESH_STEPS = 3
+MESH_STEPS = 2
+MESH_RUNS = ("train_dp", "train")
 #: gradient leaves whose first-step shards go through compressed_psum
 MESH_CP_LEAVES = (("norm_f", "scale"), ("blocks_0", "attn", "wq"), ("blocks_0", "mlp", "w_down"))
 #: the phase's share of the run's budget, inside the DHT phase's wall time
-#: (29.9 and 31.6 s in the ranks in two whole runs on NVIDIA H100 80GB
-#: HBM3, 700.00 W)
-MESH_PHASE_S = 30.0
+#: (on NVIDIA H100 80GB HBM3, 700.00 W: 29.9 and 31.6 s in the ranks in two
+#: whole runs with 3 train_dp steps; 32.9 s with 2 train_dp and 2 train
+#: steps, whose steps run ~20 % slower on a slow host)
+MESH_PHASE_S = 36.0
 MESH_DIR = Path(__file__).resolve().parent / "build" / "mesh"
 MESH_MOE = (("shardmap", "mixtral-8x7b", "train_dp"), ("ep", "phi3.5-moe-42b-a6.6b", "train_dp_ep"))
 
 
 #: the master leaves phase 13 and the mesh phase are compared on: (path,
-#: rows of its first dim, which no train_dp spec shards here)
+#: rows of its first dim: the first chunk's, where the dim is sharded)
 MESH_SAMPLES = {"embed": (("embed", "table"), slice(0, 16)),
                 "wq": (("blocks_0", "attn", "wq"), slice(0, 1)),
                 "norm": (("norm_f", "scale"), slice(None))}
@@ -3516,6 +3607,17 @@ def _mesh_samples(params) -> dict:
             leaf = leaf[key]
         out[k] = leaf[rows]
     return out
+
+
+def _gathered_samples(params, layout, mesh) -> dict:
+    """``_mesh_samples`` of a sharded master tree, whole on the mesh's
+    first rank: every sampled dim gathered but a row slice's, whose rows lie
+    in the first rank's chunk (collective)."""
+    from repro_torch.train import steps as TS
+    flat = dict(TS.layout_leaves(layout))
+    return {k: TS.gather_leaf(v, flat[MESH_SAMPLES[k][0]], mesh,
+                              () if MESH_SAMPLES[k][1] == slice(None) else (0,))
+            for k, v in _mesh_samples(params).items()}
 
 
 def _moe_inputs(arch: str):
@@ -3571,40 +3673,18 @@ def _mesh_compressed(step, mesh) -> dict:
     return errs
 
 
-def _mesh_rank(rank: int, world: int, device, cfg, batches, commit_dir: str) -> dict:
-    """The mesh phase on one of the DHT's card ranks: a 2 x 2 train_dp mesh
-    over the 4 ranks; ``cfg`` (yi-6b at its published widths) from seed 0
-    sharded ZeRO-3, ``MESH_STEPS`` steps on phase 13's batches (the last
-    traced), ``compressed_psum`` on the first step's gradient shards; then
-    both MoE shard_map variants on this rank's row and the elastic runbook
-    at reduced yi-6b (a sharded commit, the shrink to (1, 2), ranks 2 and 3
-    leave the mesh, the restore, the reshard, one step). Returns what the
-    parent checks; rank 0 also the gathered samples."""
-    import gc
-    from repro_torch import interop
-    from repro_torch.checkpoint import CheckpointManager
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import fused, hashmix, probe
-    from repro_torch.launch import elastic
-    from repro_torch.launch.mesh import make_test_mesh
-    from repro_torch.models import moe as M
-    from repro_torch.models.transformer import param_specs
-    from repro_torch.parallel import collectives, sharding
-    from repro_torch.train import steps as TS
+def _mesh_run(rank: int, preset: str, step, state, mesh, batches, device) -> dict:
+    """``MESH_STEPS`` steps of ``step`` (made under ``preset``) from
+    ``state`` on phase 13's batches, the last traced: each step's ms and
+    bytes into each collective, the losses and lrs, peak HBM, the gathered
+    samples (rank 0) and, under train_dp, ``compressed_psum`` on the first
+    step's gradient shards."""
+    from repro_torch.parallel import collectives
     t0 = time.perf_counter()
-    for mod in (hashmix, probe, fused):
-        mod.LAUNCHES = 0
-    out = {}
-    mesh = make_test_mesh(2, 2, device)
     cuda = torch.device(device).type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
-    with sharding.use(mesh, "train_dp"):
-        step = TS.make_train_step(cfg)
-        state = TS.init_mesh_state(cfg, 0, mesh, device, step.layout)
-    sync()
-    out["init_s"] = time.perf_counter() - t0
-    out.update(losses=[], lrs=[], step_ms=[], bytes=[], layers=cfg.n_layers)
+    out = dict(losses=[], lrs=[], step_ms=[], bytes=[])
     for i, b in enumerate(batches):
         batch = {k: torch.as_tensor(v, device=device) for k, v in b.items()}
 
@@ -3623,23 +3703,69 @@ def _mesh_rank(rank: int, world: int, device, cfg, batches, commit_dir: str) -> 
         out["bytes"].append(dict(collectives.BYTES))
         out["losses"].append(loss)
         out["lrs"].append(float(m["lr"]))
-        if i == 0:
+        if i == 0 and preset == "train_dp":
             out["cp"] = _mesh_compressed(step, mesh)
-    flat = dict(TS.layout_leaves(step.layout))
-    samples = {k: TS.gather_leaf(v, flat[MESH_SAMPLES[k][0]], mesh)
-               for k, v in _mesh_samples(state.params).items()}
+    samples = _gathered_samples(state.params, step.layout, mesh)
     if rank == 0:
         out["samples"] = {k: v.cpu().numpy() for k, v in samples.items()}
     if cuda:
         out["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
     out["main_s"] = time.perf_counter() - t0
     if rank == 0:
-        log(f"  mesh rank 0: {cfg.n_layers} layers, steps ms {out['step_ms']}, losses "
-            f"{out['losses']}, peak HBM {out.get('peak_gb', 0.0):.2f} GB, {out['main_s']:.1f}s")
-    del state, step, samples
+        log(f"  mesh rank 0 {preset}: steps ms {out['step_ms']}, losses {out['losses']}, peak "
+            f"HBM {out.get('peak_gb', 0.0):.2f} GB, {out['main_s']:.1f}s")
+    return out
+
+
+def _mesh_rank(rank: int, world: int, device, cfg, batches, commit_dir: str) -> dict:
+    """The mesh phase on one of the DHT's card ranks: a 2 x 2 mesh over the
+    4 ranks; ``cfg`` (yi-6b at its published widths) from seed 0 (one f32
+    draw, sharded under each preset of ``MESH_RUNS``; the later presets'
+    shards wait on the host), ``MESH_STEPS`` steps on phase 13's batches
+    under each (``_mesh_run``); then both MoE shard_map variants on this
+    rank's row and the elastic runbook at reduced yi-6b (a sharded commit,
+    the shrink to (1, 2), ranks 2 and 3 leave the mesh, the restore, the
+    reshard, one step under the default preset, ``train``). Returns what
+    the parent checks; rank 0 also the gathered samples."""
+    import dataclasses
+    import gc
+    from repro_torch import interop
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import fused, hashmix, probe
+    from repro_torch.launch import elastic
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import init_params
+    from repro_torch.models import moe as M
+    from repro_torch.models.transformer import param_specs
+    from repro_torch.parallel import collectives, sharding
+    from repro_torch.train import steps as TS
+    t0 = time.perf_counter()
+    for mod in (hashmix, probe, fused):
+        mod.LAUNCHES = 0
+    out = {"layers": cfg.n_layers, "runs": {}}
+    mesh = make_test_mesh(2, 2, device)
+    cuda = torch.device(device).type == "cuda"
+    model = init_params(dataclasses.replace(cfg, dtype="float32"), 0, device)
+    steps, shards = {}, {}
+    for i, preset in enumerate(MESH_RUNS):
+        with sharding.use(mesh, preset):
+            steps[preset] = TS.make_train_step(cfg)
+        shards[preset] = TS.mesh_shards(model, steps[preset].layout,
+                                        device if i == 0 else "cpu")
+    del model
     gc.collect()
-    if cuda:
-        torch.cuda.empty_cache()
+    sync()
+    out["init_s"] = time.perf_counter() - t0
+    for preset in MESH_RUNS:
+        state = TS.train_state_init(sharding.tree_map(lambda t: t.to(device), shards.pop(preset)))
+        out["runs"][preset] = _mesh_run(rank, preset, steps[preset], state, mesh, batches, device)
+        del state
+        steps.pop(preset)
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    out["main_s"] = time.perf_counter() - t0
 
     # ---- the MoE shard_map variants on this rank's row (reduced, f32) ----
     for key, arch, rules in MESH_MOE:
@@ -3677,8 +3803,8 @@ def _mesh_rank(rank: int, world: int, device, cfg, batches, commit_dir: str) -> 
         out["elastic"] = {"left": True}
     else:
         _, lazy, _ = ckpt.restore_manifest()
-        st = interop.train_state_to_mesh(ycfg, lazy, small, "train_dp", device)
-        step = elastic.relower_for_mesh(ycfg, small, "train_dp")
+        st = interop.train_state_to_mesh(ycfg, lazy, small, "train", device)
+        step = elastic.relower_for_mesh(ycfg, small)
         st, m = step(st, {k: torch.as_tensor(v, device=device) for k, v in eb[1].items()})
         full = TS.gather_tree(st.params, step.layout, small)
         out["elastic"] = {"metrics": {k: float(v) for k, v in m.items()}, "batch": eb[1],
@@ -3711,20 +3837,24 @@ def mesh_checks(report, card: str, ranks: list, record: dict, commit_dir: str) -
     from repro_torch.models.moe import _moe_math, moe_capacity
     from repro_torch.train import steps as TS
     r0 = ranks[0]
-    check(all(r["losses"] == r0["losses"] for r in ranks) and np.isfinite(r0["losses"]).all(),
-          f"mesh: the ranks' losses {[r['losses'] for r in ranks]}")
     bf16 = 2.0 ** -8
-    lr_sum = sum(r0["lrs"])
     errs = {}
-    if record is not None:
-        for got, want in zip(r0["losses"], record["losses"]):
-            check(abs(got - want) <= bf16 * abs(want),
-                  f"mesh: losses {r0['losses']} against phase 13's {record['losses']}")
-        errs = {k: float(np.abs(r0["samples"][k] - v).max())
-                for k, v in record["samples"].items()}
-        check(lr_sum > 0 and all(e <= 2.1 * lr_sum for e in errs.values()),
-              f"mesh: sampled masters {errs} above 2.1 x {lr_sum}")
-    cp = {k: max(r["cp"][k][:2] for r in ranks) for k in r0["cp"]}
+    for preset, run in r0["runs"].items():
+        losses = [r["runs"][preset]["losses"] for r in ranks]
+        check(all(x == run["losses"] for x in losses) and np.isfinite(run["losses"]).all(),
+              f"mesh {preset}: the ranks' losses {losses}")
+        lr_sum = sum(run["lrs"])
+        if record is not None:
+            for got, want in zip(run["losses"], record["losses"]):
+                check(abs(got - want) <= bf16 * abs(want),
+                      f"mesh {preset}: losses {run['losses']} against phase 13's "
+                      f"{record['losses']}")
+            errs[preset] = {k: float(np.abs(run["samples"][k] - v).max())
+                            for k, v in record["samples"].items()}
+            check(lr_sum > 0 and all(e <= 2.1 * lr_sum for e in errs[preset].values()),
+                  f"mesh {preset}: sampled masters {errs[preset]} above 2.1 x {lr_sum}")
+    cps = [r["runs"]["train_dp"]["cp"] for r in ranks]
+    cp = {k: max(c[k][:2] for c in cps) for k in cps[0]}
     check(all(max(v) == 0.0 for v in cp.values()), f"mesh: compressed_psum off its formula {cp}")
     moe = {}
     for key, arch, _ in MESH_MOE:
@@ -3770,11 +3900,15 @@ def mesh_checks(report, card: str, ranks: list, record: dict, commit_dir: str) -
         rr["launches"] = sum(rr["paths"].values())
     out = dict(ranks=ranks, errs=errs, cp=cp, moe=moe, el_err=el_err, launches=launches,
                seconds=max(r["seconds"] for r in ranks))
-    held = (f"(phase 13: {record['losses']}), sampled masters within "
-            f"{max(errs.values()):.3g} of phase 13's (bound {2.1 * lr_sum:.3g})"
-            if record is not None else "(no one-device run to hold them to)")
-    log(f"phase mesh: ok losses {r0['losses']} {held}; "
-        f"compressed_psum exact on {sum(v[2] for v in r0['cp'].values())} gradient elements; "
+    lr_sum = sum(r0["runs"]["train_dp"]["lrs"])
+    held = "; ".join(
+        f"{p} losses {run['losses']}"
+        + (f", sampled masters within {max(errs[p].values()):.3g} of phase 13's"
+           if record is not None else "") for p, run in r0["runs"].items())
+    held += (f" (phase 13: {record['losses']}; bound {2.1 * lr_sum:.3g})"
+             if record is not None else " (no one-device run to hold them to)")
+    log(f"phase mesh: ok {held}; compressed_psum exact on "
+        f"{sum(v[2] for v in cps[0].values())} gradient elements; "
         f"moe shardmap / ep within {moe['shardmap'][0]:.3g} / {moe['ep'][0]:.3g} of their "
         f"plain computation; elastic step within {el_err:.3g} of the one-device step; "
         f"launches {launches} ({out['seconds']:.1f}s in the ranks) [{card}]")
@@ -3791,8 +3925,8 @@ def mesh_on_cards(n_layers: int = 32, world: int = 4, steps: int = 6) -> int:
     """The mesh phase's rank function one rank a card over NCCL, on a
     machine with ``world`` cards, at yi-6b's published widths on
     ``n_layers`` layers (its full depth by default), ``steps`` steps of
-    seeded random batches of 4 x 256 tokens (the last traced), each rank
-    warmed first. There is no one-device run to hold
+    seeded random batches of 4 x 256 tokens (the last traced) under each
+    preset of ``MESH_RUNS``, each rank warmed first. There is no one-device run to hold
     the losses and masters to (32 layers do not fit one card); every other
     check of ``mesh_checks`` is made. Prints every card's line, the mesh
     line and the checks' line. Run it as
@@ -3834,30 +3968,37 @@ def mesh_on_cards(n_layers: int = 32, world: int = 4, steps: int = 6) -> int:
 
 
 def mesh_line(mesh, card: str, cards: int = 1) -> str:
-    """The end-to-end line of the mesh phase (its ranks on ``cards``
-    cards)."""
+    """The end-to-end lines of the mesh phase, one a preset (its ranks on
+    ``cards`` cards)."""
     r0 = mesh["ranks"][0]
     gb = 1e9
-    per = {k: np.mean([b[k] for b in r0["bytes"]]) / gb for k in r0["bytes"][0]}
-    peak = [r.get("peak_gb") for r in mesh["ranks"]]
-    trace = ""
-    if "trace" in r0:
-        wall = r0["trace"][0]
-        busy = sum(r["trace"][1] for r in mesh["ranks"])
-        copies = sum(r["trace"][3] for r in mesh["ranks"])
-        trace = (f"; {'the card' if cards == 1 else 'a card on average'}'s kernels busy "
-                 f"{busy / cards / wall:.3f} of rank 0's traced step ({wall * 1e3:.1f} ms wall; "
-                 f"the ranks' kernel time summed, {busy * 1e3:.1f} ms; their copies to and "
-                 f"from the host {copies * 1e3:.1f} ms more; rank 0's top: "
-                 + "; ".join(f"{k} {v:.2f} ms" for k, v in r0["trace"][2]) + ")")
-    return (f"end to end mesh [{card}]: yi-6b at full width on {r0['layers']} layers, train_dp "
+    lines = []
+    for preset, run in r0["runs"].items():
+        runs = [r["runs"][preset] for r in mesh["ranks"]]
+        per = {k: np.mean([b[k] for b in run["bytes"]]) / gb for k in run["bytes"][0]}
+        peak = [r.get("peak_gb") for r in runs]
+        trace = ""
+        if "trace" in run:
+            wall = run["trace"][0]
+            busy = sum(r["trace"][1] for r in runs)
+            copies = sum(r["trace"][3] for r in runs)
+            trace = (f"; {'the card' if cards == 1 else 'a card on average'}'s kernels busy "
+                     f"{busy / cards / wall:.3f} of rank 0's traced step ({wall * 1e3:.1f} ms "
+                     f"wall; the ranks' kernel time summed, {busy * 1e3:.1f} ms; their copies "
+                     f"to and from the host {copies * 1e3:.1f} ms more; rank 0's top: "
+                     + "; ".join(f"{k} {v:.2f} ms" for k, v in run["trace"][2]) + ")")
+        lines.append(
+            f"end to end mesh [{card}]: yi-6b at full width on {r0['layers']} layers, {preset} "
             f"on a 2 x 2 mesh of " + ("4 gloo ranks sharing the card (collectives through the "
                                       "host; not a multi-GPU result)" if cards == 1 else
-                                      f"{cards} NCCL ranks, one a card") + f": steps ms [{', '.join(f'{x:.1f}' for x in r0['step_ms'])}], "
-            f"p50 {np.percentile(r0['step_ms'], 50):.1f}; init {r0['init_s']:.1f}s; peak HBM a "
-            f"rank [{', '.join(f'{x:.2f}' for x in peak if x is not None)}] GB; GB a step a rank "
+                                      f"{cards} NCCL ranks, one a card")
+            + f": steps ms [{', '.join(f'{x:.1f}' for x in run['step_ms'])}], "
+            f"p50 {np.percentile(run['step_ms'], 50):.1f}; peak HBM a rank "
+            f"[{', '.join(f'{x:.2f}' for x in peak if x is not None)}] GB; GB a step a rank "
             f"into " + ", ".join(f"{k} {v:.3f}" for k, v in per.items()) + trace
-            + f"; phase {mesh['seconds']:.1f}s")
+            + f"; the run {run['main_s']:.1f}s")
+    lines[-1] += f"; init {r0['init_s']:.1f}s; phase {mesh['seconds']:.1f}s"
+    return "\n".join(lines)
 
 
 def _rank_entry(target, rank: int, world: int, init: str, backend: str, result: str,
@@ -4348,6 +4489,102 @@ def phase_dht(report, card: str, nccl, n_keys: int = DHT_KEYS, geometry=None,
 
 
 
+# ---------------------------------------------------------------------------
+# the side lane: the LH path, shrink and the baselines in a second process
+# ---------------------------------------------------------------------------
+
+#: the longest the main process waits for the side lane once its own model
+#: phases are done, and the longest the side lane waits for the main
+#: process's load latency
+SIDE_TIMEOUT = 600.0
+SIDE_DIR = Path(__file__).resolve().parent / "build" / "side"
+
+
+def side_lane(run_t0: float, locks, load_ns, ns_ready, card: str, lh_keys: int,
+              result: str, device: str) -> None:
+    """Phases 8-10 in a spawned process on the card, beside the main
+    process's phases 4-7c, 12 and 13 (the host drives every path, one core
+    a process): the LH path and its probe kernels, shrink, then the
+    baselines. Each path's launch counters are this process's own, set to 0
+    just before it and read just after. ``locks`` are the timing lock, the
+    step lock and the main process's wish for it (``_LANES``);
+    ``level_scan``'s bound waits for the main process's
+    dependent-load latency (``load_ns``, once ``ns_ready`` is set). Pickles
+    its report entries, the LH summary and the baselines' result to
+    ``result``; a failed phase exits 1. ``device`` is ``DEVICE`` in the
+    parent (a CPU rehearsal sets "cpu")."""
+    import pickle
+    global _RUN_T0, _LANES, DEVICE
+    DEVICE = device
+    parent = os.getppid()
+    _RUN_T0, _LANES = run_t0, (*locks, lambda: os.getppid() == parent, True)
+    _child_setup(2)
+    from repro_torch.core import DashConfig
+    report = {}
+    try:
+        t, keys, misses, lh, _ = phase_main_path(
+            DashConfig(max_segments=32768, num_stash=4), lh_keys, 1000, report,
+            "DashLH", "lh", lh_batch, LH_RETRIES)
+        with quiet_card():
+            phase_probe_kernels(t, keys, misses, report)
+        del t
+        phase_shrink(DashConfig(max_segments=32768, dir_depth_max=17,
+                                init_depth=SHRINK_DEPTH))
+        elapsed = time.perf_counter() - run_t0
+        cut_apps = elapsed + BASE_PHASE_S + MESH_PHASE_S + DHT_FIXED_S > RUN_BUDGET_S
+        if cut_apps:
+            log(f"apps cut: the prefix cache {APPS_CUT[0]} prompts in {APPS_CUT[1]} pages, "
+                f"the dedup stream {APPS_CUT[2]} batches ({elapsed:.0f}s of the run spent)")
+        check(ns_ready.wait(SIDE_TIMEOUT), "no load latency from the main process")
+        report["fused_probe"]["load_ns"] = load_ns.value
+        base = phase_baselines(report, card, cut_apps=cut_apps)
+    except PhaseError as e:
+        log(f"FAILED in the side lane: {e}")
+        os._exit(1)
+    with open(result, "wb") as f:
+        pickle.dump(dict(report=report, lh=lh, base=base), f)
+
+
+def start_side_lane(card: str, lh_keys: int):
+    """Spawn ``side_lane`` and share the card's locks with it (``_LANES``).
+    Returns (the child, its shared load latency and event, its result)."""
+    import multiprocessing
+    global _LANES
+    ctx = multiprocessing.get_context("spawn")
+    shutil.rmtree(SIDE_DIR, ignore_errors=True)
+    SIDE_DIR.mkdir(parents=True)
+    result = SIDE_DIR / "side.pkl"
+    locks = (ctx.Lock(), ctx.Lock(), ctx.Event())
+    load_ns, ns_ready = ctx.Value("d", float("nan")), ctx.Event()
+    child = ctx.Process(target=side_lane, name="side-lane", args=(
+        _RUN_T0, locks, load_ns, ns_ready, card, lh_keys, str(result), DEVICE))
+    child.start()
+    _LANES = (*locks, lambda: child.exitcode in (None, 0), False)
+    return child, load_ns, ns_ready, result
+
+
+def join_side_lane(side, report) -> dict:
+    """Wait for the side lane; merge its report entries into ``report``
+    (its paths' launches, its largest errors, the entries only it
+    measures). Returns its LH summary and baselines' result."""
+    import pickle
+    child, _, _, result = side
+    _join(child, SIDE_TIMEOUT, "the side lane")
+    with open(result, "rb") as f:
+        out = pickle.load(f)
+    for kernel, part in out["report"].items():
+        r = report.setdefault(kernel, {})
+        for k, v in part.items():
+            if k == "paths":
+                r.setdefault("paths", {}).update(v)
+            elif k == "max_abs_err":
+                r[k] = max(r.get(k, 0), v)
+            else:
+                r.setdefault(k, v)
+        r["launches"] = sum(r["paths"].values())
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--keys", type=int, default=20_000_000,
@@ -4379,18 +4616,22 @@ def main(argv=None) -> int:
         log(f"frontend cut: {args.fe_keys} keys of 8000000")
     report = {}
     t0 = time.perf_counter()
-    cpu_child, cards = start_cpu_halves(), None
+    cpu_child, cards, side = start_cpu_halves(), None, None
     try:
         phase_build()
         phase_bulk_hash(report)
         nccl = start_dht_nccl()           # beside the streams, which time nothing
         cards = start_dht_cards()         # they wait for phase_dht
+        side = start_side_lane(card, args.lh_keys)    # phases 8-10, from here on
         phase_cuda_vs_cpu(cpu_child)
         nccl = _wait_ranks(nccl, DHT_TIMEOUT, "the DHT's NCCL rank")[0]
         phase_edges()
         t, keys, misses, summary, truth = phase_main_path(
             DashConfig(max_segments=32768, dir_depth_max=17), args.keys, 1000, report)
-        phase_probe_kernels(t, keys, misses, report)
+        with quiet_card(pause_side=True):
+            phase_probe_kernels(t, keys, misses, report)
+        side[1].value = report["fused_probe"]["load_ns"]
+        side[2].set()
         phase_recovery(t, keys, misses, truth)
         del t, truth
         fe, carry = phase_frontend(
@@ -4398,30 +4639,23 @@ def main(argv=None) -> int:
             args.fe_keys, FE_FRESH, report, card)
         dur = phase_durable(carry, report, card)
         del carry
-        t, keys, misses, lh, _ = phase_main_path(
-            DashConfig(max_segments=32768, num_stash=4), args.lh_keys, 1000, report,
-            "DashLH", "lh", lh_batch, LH_RETRIES)
-        phase_probe_kernels(t, keys, misses, report)
-        del t
-        phase_shrink(DashConfig(max_segments=32768, dir_depth_max=17, init_depth=SHRINK_DEPTH))
+        # past the run's budget yi-6b loses its third round (the side lane
+        # halves its apps by the same budget), then the DHT its keys
         rest = LM_PHASES_S + TRAIN_PHASE_S + MESH_PHASE_S + DHT_FIXED_S + DHT_S_PER_MKEY
-        elapsed = time.perf_counter() - t0
-        cut_apps = elapsed + BASE_PHASE_S + rest > RUN_BUDGET_S
-        if cut_apps:
-            # the run's time limit halves the apps first, then yi-6b's third round, then
-            # the DHT's keys
-            log(f"apps cut: the prefix cache {APPS_CUT[0]} prompts in {APPS_CUT[1]} pages, the "
-                f"dedup stream {APPS_CUT[2]} batches ({elapsed:.0f}s of the run spent)")
-        base = phase_baselines(report, card, cut_apps=cut_apps)
         rounds, elapsed = LM_ROUNDS, time.perf_counter() - t0
         if elapsed + rest > RUN_BUDGET_S:
             rounds = 2
             log(f"lm cut: {LM_ARCH} {rounds} rounds of {LM_ROUNDS} ({elapsed:.0f}s of the run "
                 f"spent)")
-        lm = [phase_lm(report, card, LM_ARCH, rounds)]
+        with quiet_card():
+            lm = [phase_lm(report, card, LM_ARCH, rounds)]
         for arch, n_layers, pages in LM_KINDS:
-            lm.append(phase_lm(report, card, arch, LM_KIND_ROUNDS, n_layers, pages))
-        train = phase_train(report, card)
+            with quiet_card():
+                lm.append(phase_lm(report, card, arch, LM_KIND_ROUNDS, n_layers, pages))
+        with quiet_card():
+            train = phase_train(report, card)
+        side_out = join_side_lane(side, report)
+        lh, base = side_out["lh"], side_out["base"]
         n_dht, elapsed = DHT_KEYS, time.perf_counter() - t0
         if elapsed + MESH_PHASE_S + DHT_FIXED_S + DHT_S_PER_MKEY > RUN_BUDGET_S:
             left = max(RUN_BUDGET_S - elapsed - MESH_PHASE_S - DHT_FIXED_S,
@@ -4435,9 +4669,10 @@ def main(argv=None) -> int:
         log(f"FAILED: {e}")
         return 1
     finally:
-        if cpu_child.is_alive():
-            cpu_child.kill()
-            cpu_child.join()
+        for child in (cpu_child, side[0] if side is not None else None):
+            if child is not None and child.is_alive():
+                child.kill()
+                child.join()
         for p in (cards[0][0] if cards is not None else ()):
             if p.is_alive():
                 p.kill()

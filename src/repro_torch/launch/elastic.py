@@ -37,11 +37,11 @@ def shrink_mesh(mesh, axis: str = "data", drop: int = 1, device=None):
     return build_mesh(ranks.narrow(idx, 0, keep).clone(), names, device)
 
 
-def relower_for_mesh(cfg, new_mesh, rules: str = "train_dp", peak_lr: float = 3e-4):
+def relower_for_mesh(cfg, new_mesh, rules: str = "train", peak_lr: float = 3e-4):
     """The train step bound to a resized mesh (placements re-derived from
-    the same logical rules); installs (new_mesh, rules) as the active pair.
-    The port's default preset is ``train_dp``, the one that runs on a mesh
-    (the reference's default, ``train``, is TP+SP)."""
+    the same logical rules; ``make_mesh_train_step``'s); installs
+    (new_mesh, rules) as the active pair. The default preset is the
+    reference's, ``train`` (FSDP + TP + SP)."""
     sharding.set_active(new_mesh, rules)
     return make_train_step(cfg, peak_lr=peak_lr)
 

@@ -12,7 +12,12 @@ Conventions:
   * prefill attention is an online softmax over KV chunks in f32; decode
     attention is a grouped-query product straight against the cache with
     bf16 inputs and f32 results. No fused-attention library: its numerics
-    differ from the reference's.
+    differ from the reference's;
+  * on a mesh (tensor parallelism, ``parallel.sharding``) a weight may be
+    this rank's slice over 'model' (its heads, ``mlp`` columns or
+    vocabulary rows): the training forms read the whole sequence
+    (``tp_in``), compute on the slice, and hand a partial sum back to the
+    residual stream (``tp_out``). The weights' shapes say which.
 """
 from __future__ import annotations
 
@@ -24,6 +29,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.parallel.collectives import (all_reduce_, all_reduce_sum, tp_group, tp_in,
+                                              tp_out, tp_slice)
 
 
 def truncated_normal_(w: torch.Tensor, scale: float, generator) -> torch.Tensor:
@@ -157,12 +165,22 @@ def attention_train(w, cfg: AttnConfig, x, positions, return_kv: bool = False):
     ``dynamic_slice`` clamps it, and the keys are labelled with that clamped
     start: the reference labels them with the unclamped one, which puts the
     wrong positions on the keys (and the wrong causal and window mask) when
-    the query padding pushes the last block past ``S - band``."""
+    the query padding pushes the last block past ``S - band``.
+
+    Under tensor parallelism ``wq`` / ``wo`` hold this rank's heads and
+    ``wk`` / ``wv`` its kv heads, or all of them where the kv heads do not
+    split with the query heads (MQA): the kv heads this rank's query heads
+    read are then picked out. The output is a partial sum over 'model'."""
+    x = tp_in(x)
     B, S, _ = x.shape
     H, G, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = apply_rope(_project(x, w.wq, H, hd), positions[:, None, :], cfg.rope_theta, w.freqs)
-    k = apply_rope(_project(x, w.wk, G, hd), positions[:, None, :], cfg.rope_theta, w.freqs)
-    v = _project(x, w.wv, G, hd)
+    Hl, Gl = w.wq.shape[1] // hd, w.wk.shape[1] // hd
+    q = apply_rope(_project(x, w.wq, Hl, hd), positions[:, None, :], cfg.rope_theta, w.freqs)
+    k = apply_rope(_project(x, w.wk, Gl, hd), positions[:, None, :], cfg.rope_theta, w.freqs)
+    v = _project(x, w.wv, Gl, hd)
+    if Hl < H and Gl == G:
+        kv = (tp_slice(H, Hl) + torch.arange(Hl, device=x.device)) // (H // G)
+        k, v = k[:, kv], v[:, kv]
 
     S_real = S
     qc = min(cfg.q_chunk, S)
@@ -186,7 +204,7 @@ def attention_train(w, cfg: AttnConfig, x, positions, return_kv: bool = False):
             outs.append(_chunked_attention(q[:, :, qi * qc:(qi + 1) * qc], k, v,
                                            qi * qc, 0, 0, W))
     out = torch.cat(outs, dim=2)[:, :, :S_real]
-    out = out.transpose(1, 2).reshape(B, S_real, H * hd) @ w.wo
+    out = tp_out(out.transpose(1, 2).reshape(B, S_real, Hl * hd) @ w.wo, Hl < H)
     if return_kv:
         return out, (k, v)      # roped K/V (B, G, S, hd) for cache assembly
     return out
@@ -257,12 +275,17 @@ class Attention(nn.Module):
 # ---------------------------------------------------------------------------
 
 def mlp(w, x):
-    return (F.silu(x @ w.w_gate) * (x @ w.w_up)) @ w.w_down
+    """SwiGLU; under tensor parallelism on this rank's ``mlp`` columns, the
+    output a partial sum over 'model'."""
+    x = tp_in(x)
+    y = (F.silu(x @ w.w_gate) * (x @ w.w_up)) @ w.w_down
+    return tp_out(y, w.w_down.shape[0] < w.d_ff)
 
 
 class SwiGLU(nn.Module):
     def __init__(self, d: int, d_ff: int, dtype, device):
         super().__init__()
+        self.d_ff = d_ff
         self.w_gate = _weight((d, d_ff), dtype, device)
         self.w_up = _weight((d, d_ff), dtype, device)
         self.w_down = _weight((d_ff, d), dtype, device)
@@ -281,33 +304,63 @@ class SwiGLU(nn.Module):
 # embedding / unembedding
 # ---------------------------------------------------------------------------
 
-def embed(table, tokens):
-    return table[tokens.long()]
+def embed(table, tokens, vocab: Optional[int] = None):
+    """The rows of ``tokens``. A table of fewer than ``vocab`` rows is this
+    rank's slice over 'model' (vocab-parallel): it looks up the ids in its
+    range, zeros elsewhere, and the pieces are summed over 'model' (exact:
+    one term a token is not zero)."""
+    n = table.shape[0]
+    if vocab is None or n == vocab:
+        return table[tokens.long()]
+    ids = tokens.long() - tp_slice(vocab, n)
+    hit = (ids >= 0) & (ids < n)
+    rows = table[torch.where(hit, ids, 0)]
+    return all_reduce_sum(torch.where(hit[..., None], rows, torch.zeros_like(rows)), tp_group())
 
 
-def unembed(w, x):
+def unembed(w, x, vocab: Optional[int] = None):
+    """Logits ``x @ w``; a ``w`` of fewer than ``vocab`` columns is this
+    rank's vocabulary slice, over the whole sequence (``tp_in``)."""
+    if vocab is not None and w.shape[1] < vocab:
+        x = tp_in(x)
     return x @ w
+
+
+def vocab_parallel_lse(logits, labels, vocab: int):
+    """(logsumexp, the label's logit) of f32 logits whose last dim is this
+    rank's slice of ``vocab`` over 'model': the max, the sum of
+    exponentials and the label's logit combined over 'model'."""
+    ag = tp_group()
+    n = logits.shape[-1]
+    mx = all_reduce_(logits.detach().amax(-1), ag, op=torch.distributed.ReduceOp.MAX)
+    lse = mx + torch.log(all_reduce_sum(torch.exp(logits - mx[..., None]).sum(-1), ag))
+    ids = labels.long() - tp_slice(vocab, n)
+    hit = (ids >= 0) & (ids < n)
+    own = torch.gather(logits, -1, torch.where(hit, ids, 0)[..., None])[..., 0]
+    return lse, all_reduce_sum(torch.where(hit, own, torch.zeros_like(own)), ag)
 
 
 class Embed(nn.Module):
     def __init__(self, vocab: int, d: int, dtype, device):
         super().__init__()
+        self.vocab = vocab
         self.table = _weight((vocab, d), dtype, device)
 
     def init(self, generator):
         truncated_normal_(self.table, 1.0, generator)
 
     def forward(self, tokens):
-        return embed(self.table, tokens)
+        return embed(self.table, tokens, self.vocab)
 
 
 class Unembed(nn.Module):
     def __init__(self, d: int, vocab: int, dtype, device):
         super().__init__()
+        self.vocab = vocab
         self.w = _weight((d, vocab), dtype, device)
 
     def init(self, generator):
         truncated_normal_(self.w, 1.0 / math.sqrt(self.w.shape[0]), generator)
 
     def forward(self, x):
-        return unembed(self.w, x)
+        return unembed(self.w, x, self.vocab)

@@ -20,7 +20,12 @@ tokens carried to them and back by two all-to-alls) and
 ``moe_apply_shardmap`` (``_moe_shardmap``: the experts int8-gathered from
 their FSDP shards). In the two shard_map variants the MoE's weights are
 this rank's f32 master shards and ``x`` holds this rank's batch rows;
-capacity comes from the local S, as in the reference.
+capacity comes from the local S, as in the reference. Under the TP + SP
+presets the plain and dense forms run on the whole sequence of this
+rank's rows (``tp_in``) with this rank's expert (``train_ep``) or ``mlp``
+(``train``, ``train_tp*``, ``train_multi_moe``) slice of the weights, and
+the partial sums go back over 'model' (``tp_out``); the plain form's aux
+fractions are means over the whole batch.
 """
 from __future__ import annotations
 
@@ -32,7 +37,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.parallel import sharding as shd
-from repro_torch.parallel.collectives import all_gather, all_reduce_mean, all_to_all, group_for
+from repro_torch.parallel.collectives import (all_gather, all_reduce_mean, all_to_all, group_for,
+                                              tp_in, tp_out, tp_slice)
 from repro_torch.parallel.compression import fsdp_gather_int8
 from repro_torch.parallel.sharding import mesh_shape
 from .layers import _weight, truncated_normal_
@@ -50,9 +56,12 @@ def moe_capacity(cfg: MoEConfig, n_tokens: int) -> int:
     return max(128, ((cap + 127) // 128) * 128)   # at least 128, a multiple of 128
 
 
-def route(cfg: MoEConfig, x, router_w, cap: int):
+def route(cfg: MoEConfig, x, router_w, cap: int, rows=None):
     """The dispatch of (B, S, d) rows: (gates (B, S*K) in x's dtype, experts
-    (B, S*K) int64, keep (B, S*K) bool, aux loss f32)."""
+    (B, S*K) int64, keep (B, S*K) bool, aux loss f32). ``rows``: the group
+    the batch's rows are split over, if any; the aux loss's two fractions
+    are then means over the whole batch (averaged over the group before
+    their product, as the reference's SPMD computes them)."""
     B, S, _ = x.shape
     E, K = cfg.n_experts, cfg.top_k
     probs = torch.softmax((x @ router_w).float(), dim=-1)                  # (B, S, E)
@@ -64,6 +73,8 @@ def route(cfg: MoEConfig, x, router_w, cap: int):
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
     me = probs.mean(dim=(0, 1))
     ce = F.one_hot(experts[..., 0], E).float().mean(dim=(0, 1))
+    if rows is not None:
+        me, ce = all_reduce_mean(me, rows), all_reduce_mean(ce, rows)
     aux = E * torch.sum(me * ce)
     flat = experts.reshape(B, S * K)
     return gate_vals.reshape(B, S * K).to(x.dtype), flat, _slots(flat, E) < cap, aux
@@ -76,12 +87,17 @@ def _slots(flat, E: int):
     return ((torch.cumsum(onehot, dim=1) - 1) * onehot).sum(-1)
 
 
-def _moe_math(cfg: MoEConfig, x, router_w, wg, wu, wd, cap: int):
+def _moe_math(cfg: MoEConfig, x, router_w, wg, wu, wd, cap: int, e0: int = 0, rows=None):
     """Router -> row-local dispatch -> expert SwiGLU on the kept rows ->
-    gate-weighted collect. Returns (y (B, S, d), aux loss, experts (B, S*K))."""
+    gate-weighted collect. ``wg``/``wu``/``wd`` hold experts ``e0`` on (all
+    of them by default); the others' rows add nothing here. Returns (y (B,
+    S, d), aux loss, experts (B, S*K))."""
     B, S, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
-    gates, experts, keep, aux = route(cfg, x, router_w, cap)
+    if rows is None:
+        gates, experts, keep, aux = route(cfg, x, router_w, cap)
+    else:
+        gates, experts, keep, aux = route(cfg, x, router_w, cap, rows)
     # (token row, expert, gate) of every kept assignment, grouped by expert
     tok = (torch.arange(B, device=x.device)[:, None] * S
            + torch.arange(S, device=x.device).repeat_interleave(K)[None]).reshape(-1)
@@ -92,13 +108,14 @@ def _moe_math(cfg: MoEConfig, x, router_w, wg, wu, wd, cap: int):
     y = torch.zeros_like(xf)
     start = 0
     for ei, n in enumerate(counts):
-        if n:
+        if n and e0 <= ei < e0 + wg.shape[0]:
             sel = order[start:start + n]
-            rows = tok[sel]
-            xe = xf[rows]
-            ye = (F.silu(xe @ wg[ei]) * (xe @ wu[ei])) @ wd[ei]
+            idx = tok[sel]
+            xe = xf[idx]
+            j = ei - e0
+            ye = (F.silu(xe @ wg[j]) * (xe @ wu[j])) @ wd[j]
             # a token picks K distinct experts: no row repeats within one add
-            y.index_add_(0, rows, ye * gates.reshape(-1)[sel, None])
+            y.index_add_(0, idx, ye * gates.reshape(-1)[sel, None])
         start += n
     return y.reshape(B, S, d), aux, experts
 
@@ -177,21 +194,34 @@ def moe_apply_ep_shardmap(params, cfg: MoEConfig, x, mesh, bx, ep_axis, fsdp_axe
     return y, all_reduce_mean(aux, group_for(mesh, tuple(bx)))
 
 
+def _slices(params, wg):
+    """(first expert, whether the experts' output is a partial sum over
+    'model') of an ``MoE`` whose weights may be this rank's expert or
+    ``mlp`` slice (a dict of weights is whole)."""
+    E, d_ff = getattr(params, "n_experts", wg.shape[0]), getattr(params, "d_ff", wg.shape[2])
+    return tp_slice(E, wg.shape[0]), wg.shape[0] < E or wg.shape[2] < d_ff
+
+
 def moe_apply_dense(params, cfg: MoEConfig, x):
-    """Dispatch-free MoE (the serving presets): EVERY expert on every token,
-    gate-weighted (E/k more expert FLOPs, no scatter or gather; no token is
-    dropped); the aux loss is 0."""
+    """Dispatch-free MoE (the serving presets, ``train_multi_moe``): EVERY
+    expert on every token, gate-weighted (E/k more expert FLOPs, no scatter
+    or gather; no token is dropped); the aux loss is 0. Under tensor
+    parallelism on the whole sequence and this rank's expert / ``mlp``
+    slice, the output a partial sum over 'model'."""
     router, wg, wu, wd = _weights(params)
+    x = tp_in(x)
     dt = x.dtype
+    e0, partial = _slices(params, wg)
     probs = torch.softmax((x @ router.to(dt)).float(), dim=-1)
     topv = torch.topk(probs, cfg.top_k, dim=-1).values
     gates = torch.where(probs >= topv[..., -1:], probs, 0.0)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)          # (B, S, E)
+    gates = gates[..., e0:e0 + wg.shape[0]]
     g = torch.einsum("bsd,edf->bsef", x, wg.to(dt))
     u = torch.einsum("bsd,edf->bsef", x, wu.to(dt))
     h = (F.silu(g) * u) * gates.to(dt)[..., None]
     y = torch.einsum("bsef,efd->bsd", h, wd.to(dt))
-    return y, torch.zeros((), dtype=torch.float32, device=x.device)
+    return tp_out(y, partial), torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def mesh_variant(cfg: MoEConfig, d: int, local_rows: int):
@@ -230,9 +260,18 @@ def moe_apply(w, cfg: MoEConfig, x):
                                      variant[2])
     if variant is not None:
         return moe_apply_shardmap(w, cfg, x, shd.active_mesh(), variant[1], variant[2])
+    mesh = shd.active_mesh()
+    rows = None
+    if mesh is not None:
+        sizes = mesh_shape(mesh)
+        bx = shd.batch_axes(x.shape[0] * math.prod(sizes[a] for a in shd.batch_axes()))
+        rows = group_for(mesh, bx) if bx else None
+    # the whole sequence (tp_in), this rank's expert / mlp slice
+    x = tp_in(x)
+    e0, partial = _slices(w, w.w_gate)
     y, aux, w.routed = _moe_math(cfg, x, w.router, w.w_gate, w.w_up, w.w_down,
-                                 moe_capacity(cfg, x.shape[1]))
-    return y, aux
+                                 moe_capacity(cfg, x.shape[1]), e0, rows)
+    return tp_out(y, partial), aux
 
 
 class MoE(nn.Module):
@@ -243,6 +282,7 @@ class MoE(nn.Module):
         super().__init__()
         E = cfg.n_experts
         self.cfg = cfg
+        self.n_experts, self.d_ff = E, d_ff
         self.router = _weight((d, E), dtype, device)
         self.w_gate = _weight((E, d, d_ff), dtype, device)
         self.w_up = _weight((E, d, d_ff), dtype, device)

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.parallel.collectives import all_gather, tp_group, tp_in, tp_out, tp_slice
 from .layers import _weight, truncated_normal_
 
 C_CONST = 8.0   # Griffin's recurrence sharpness constant
@@ -57,9 +58,19 @@ def _linear_scan(a, b):
 def _rg_lru_scan(w, u, h0=None):
     """u: (B, S, d_rnn) post-conv activations; ``w`` holds ``w_rg``,
     ``w_ig`` (compute dtype) and ``lam`` (f32). Returns (y in u's dtype,
-    h_last f32)."""
-    r = torch.sigmoid((u @ w.w_rg).float())
-    i = torch.sigmoid((u @ w.w_ig).float())
+    h_last f32). Under tensor parallelism ``u`` and ``lam`` are this rank's
+    ``rnn`` channels and the gates' weights whole: the gates read every
+    channel (``u`` all-gathered over 'model') and make this rank's."""
+    rg, ig = w.w_rg, w.w_ig
+    n = u.shape[-1]
+    if rg.shape[1] != n:
+        c0 = tp_slice(rg.shape[1], n)
+        rg, ig = rg[:, c0:c0 + n], ig[:, c0:c0 + n]
+        u_all = all_gather(u, tp_group(), u.dim() - 1)
+    else:
+        u_all = u
+    r = torch.sigmoid((u_all @ rg).float())
+    i = torch.sigmoid((u_all @ ig).float())
     log_a0 = F.logsigmoid(w.lam.float())                            # (d,)
     log_a = C_CONST * r * log_a0
     a = torch.exp(log_a)
@@ -72,12 +83,15 @@ def _rg_lru_scan(w, u, h0=None):
 
 def rglru_train(w, x, return_state: bool = False):
     """Full block over a sequence: (B, S, d) -> (B, S, d); with
-    ``return_state`` also (h_last f32, conv tail)."""
+    ``return_state`` also (h_last f32, conv tail). Under tensor parallelism
+    on the whole sequence (``tp_in``) and this rank's ``rnn`` channels, the
+    output a partial sum over 'model'."""
+    x = tp_in(x)
     gate = F.gelu(x @ w.w_gate, approximate="tanh")
     u = x @ w.w_x
     u, tail = _causal_conv(w.conv_w, u)
     h, h_last = _rg_lru_scan(w, u)
-    out = (h * gate) @ w.w_out
+    out = tp_out((h * gate) @ w.w_out, w.w_out.shape[0] < w.d_rnn)
     if return_state:
         return out, (h_last, tail)
     return out
@@ -106,6 +120,7 @@ class RGLRU(nn.Module):
 
     def __init__(self, d: int, d_rnn: int, conv_width: int, dtype, device):
         super().__init__()
+        self.d_rnn = d_rnn
         self.w_x = _weight((d, d_rnn), dtype, device)
         self.w_gate = _weight((d, d_rnn), dtype, device)
         self.w_out = _weight((d_rnn, d), dtype, device)

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.parallel.collectives import tp_in, tp_out
 from .layers import _weight, truncated_normal_
 
 HEAD_SIZE = 64
@@ -91,8 +92,13 @@ def _wkv_chunked(r, k, v, w, u, state0=None):
 
 
 def rwkv6_time_mix(w, x, shift_last=None, wkv_state=None):
-    """(B, S, d) -> (B, S, d); returns (out, (shift_last, wkv_state))."""
-    B, S, d = x.shape
+    """(B, S, d) -> (B, S, d); returns (out, (shift_last, wkv_state)). Under
+    tensor parallelism on the whole sequence (``tp_in``) and this rank's
+    heads (``w_r`` ... ``w_decay`` columns, ``decay_base``, ``bonus_u``,
+    ``w_o`` rows), the output a partial sum over 'model'."""
+    x = tp_in(x)
+    B, S, _ = x.shape
+    d = w.w_r.shape[1]
     H = d // HEAD_SIZE
     xr, last = _token_shift(x, w.mix_r, shift_last)
     xkv, _ = _token_shift(x, w.mix_kv, shift_last)
@@ -106,7 +112,7 @@ def rwkv6_time_mix(w, x, shift_last=None, wkv_state=None):
     u = w.bonus_u.reshape(H, HEAD_SIZE)
     out, state = _wkv_chunked(r, k, v, decay, u, wkv_state)
     out = out.transpose(1, 2).reshape(B, S, d).to(x.dtype)
-    return (out * g) @ w.w_o, (last, state)
+    return tp_out((out * g) @ w.w_o, d < w.d), (last, state)
 
 
 def rwkv6_time_mix_decode(w, x, shift_last, wkv_state):
@@ -132,9 +138,13 @@ def rwkv6_time_mix_decode(w, x, shift_last, wkv_state):
 
 
 def rwkv6_channel_mix(w, x, shift_last=None):
+    """Squared-ReLU channel mixing; under tensor parallelism on the whole
+    sequence and this rank's ``mlp`` columns, the output a partial sum over
+    'model'."""
+    x = tp_in(x)
     xs, last = _token_shift(x, w.mix_kv, shift_last)
     h = torch.square(torch.relu(xs @ w.cm_k))
-    return h @ w.cm_v, last
+    return tp_out(h @ w.cm_v, w.cm_v.shape[0] < w.d_ff), last
 
 
 def rwkv6_state_init(batch, d, dtype, device):
@@ -151,6 +161,7 @@ class RWKV6(nn.Module):
 
     def __init__(self, d: int, d_ff: int, dtype, device):
         super().__init__()
+        self.d, self.d_ff = d, d_ff
         for name in ("w_r", "w_k", "w_v", "w_g", "w_o", "w_decay"):
             setattr(self, name, _weight((d, d), dtype, device))
         for name in F32_LEAVES:

@@ -44,6 +44,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.layout import resolve_device
+from repro_torch.parallel.collectives import seq_shard, tp_group
+from repro_torch.parallel.sharding import seq_parallel
 from . import layers as L
 from . import moe as M
 from . import rglru as R
@@ -420,8 +422,20 @@ def forward_train(params: Transformer, cfg: ModelConfig, batch):
     recomputed in the backward pass instead of kept. ``"dots"`` and
     ``"full"`` both map onto that; there is no twin of the reference's
     ``checkpoint_dots_with_no_batch_dims`` policy. Remat changes memory,
-    never values."""
+    never values.
+
+    On a mesh (``parallel.sharding.use``) the layers run on this rank's
+    weight slices (``models/layers.py``), the residual stream between them
+    on this rank's piece of the sequence under sequence parallelism, and
+    the logits are this rank's block: the sequence piece with the whole
+    vocabulary, or without sequence parallelism the whole sequence with
+    the lm head's vocabulary slice."""
     x, positions = inputs_to_embeddings(params, cfg, batch)
+    ag = tp_group()
+    if seq_parallel() and x.shape[1] % ag.size:
+        raise ValueError(f"a sequence of {x.shape[1]} does not split over {ag.size} 'model' "
+                         f"ranks (sequence parallelism)")
+    x = seq_shard(x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for _, index, blk in params.layers():
         if cfg.remat != "none" and index is not None:

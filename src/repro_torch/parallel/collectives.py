@@ -9,6 +9,12 @@ pinned host buffer, runs there and copies the result back. The choice is
 made by the group's backend (``staged``), so a NCCL group keeps its
 tensors on the card. A collective over one rank is the identity and touches no group.
 
+Tensor and sequence parallelism over 'model' (``tp_in``, ``tp_out``,
+``seq_shard``): every rank's backward starts from its own share of the
+loss, so each collective's gradient is its transpose (all-gather <->
+reduce-scatter, all-reduce <-> all-reduce) and the gradient a rank leaves
+on a replicated tensor is its share of the sum over the replicas.
+
 ``axis_groups(mesh)`` builds one process group for every set of axes and
 every coordinate of the other axes, in the same order on every rank (a
 ``new_group`` call takes the whole world, members or not), so a mesh's
@@ -22,6 +28,7 @@ import math
 import torch
 import torch.distributed as dist
 
+from . import sharding as shd
 from .sharding import coordinate, mesh_shape
 
 #: (mesh ranks, shape, axis names) -> {axes: {coordinate of the other axes: group}}
@@ -206,11 +213,6 @@ def gather(t: torch.Tensor, ag: AxisGroup, dim: int) -> torch.Tensor:
     return t if ag.size == 1 else _gather(t, ag, dim)
 
 
-def reduce_scatter(t: torch.Tensor, ag: AxisGroup, dim: int) -> torch.Tensor:
-    """The tiled reduce-scatter (sum) of ``t`` along ``dim`` (no gradient)."""
-    return t if ag.size == 1 else _scatter(t, ag, dim)
-
-
 class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, ag, dim):
@@ -220,6 +222,24 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _scatter(g, ctx.ag, ctx.dim), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, ag, dim):
+        ctx.ag, ctx.dim = ag, dim
+        return _scatter(t, ag, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.ag, ctx.dim), None, None
+
+
+def reduce_scatter(t: torch.Tensor, ag: AxisGroup, dim: int) -> torch.Tensor:
+    """The tiled reduce-scatter (sum) of ``t`` along ``dim`` (a bf16 or f16
+    tensor summed in f32 and rounded once); its gradient is the all-gather
+    of the output's (the reference's transpose of ``psum_scatter``)."""
+    return t if ag.size == 1 else _ReduceScatter.apply(t, ag, dim)
 
 
 def all_gather(t: torch.Tensor, ag: AxisGroup, dim: int) -> torch.Tensor:
@@ -266,6 +286,24 @@ def group_for(mesh, axes) -> AxisGroup:
     return _AXIS_GROUPS[key]
 
 
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, ag):
+        ctx.ag = ag
+        return all_reduce_(t.clone(), ag)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.clone(), ctx.ag), None
+
+
+def all_reduce_sum(t: torch.Tensor, ag: AxisGroup) -> torch.Tensor:
+    """The sum of ``t`` over the group (the reference's ``psum``); its
+    gradient is the sum of the output's gradients over the group: every
+    rank's share of the loss reaches every rank's ``t``."""
+    return t if ag.size == 1 else _AllReduce.apply(t, ag)
+
+
 class _AllReduceMean(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, ag):
@@ -282,3 +320,55 @@ def all_reduce_mean(t: torch.Tensor, ag: AxisGroup) -> torch.Tensor:
     gradient is the mean of the output's gradients over the group: the sum
     of every rank's loss differentiates each rank's ``t`` once."""
     return t if ag.size == 1 else _AllReduceMean.apply(t, ag)
+
+
+# ---------------------------------------------------------------------------
+# tensor and sequence parallelism over 'model'
+# ---------------------------------------------------------------------------
+
+def tp_group():
+    """This rank's group over the active mesh's 'model' axis, or None (no
+    mesh, no such axis, or one rank on it). A weight that stays sharded at
+    use is this rank's slice over it, the slice's index its ``index``."""
+    mesh = shd.active_mesh()
+    if mesh is None or mesh_shape(mesh).get("model", 1) == 1:
+        return None
+    return group_for(mesh, ("model",))
+
+
+def tp_slice(full: int, local: int) -> int:
+    """The first index of this rank's slice of a dim of ``full`` of which
+    it holds ``local`` (0 when it holds the whole)."""
+    return 0 if local == full else tp_group().index * local
+
+
+def tp_in(x: torch.Tensor) -> torch.Tensor:
+    """A block's input from the residual stream (B, S_local, ...): under
+    sequence parallelism the whole sequence, all-gathered over 'model' on
+    dim 1 (its gradient reduce-scattered back); else ``x``."""
+    return all_gather(x, tp_group(), 1) if shd.seq_parallel() else x
+
+
+def tp_out(y: torch.Tensor, partial: bool) -> torch.Tensor:
+    """A block's output (B, S, ...) back into the residual stream's layout.
+    ``partial``: a row-parallel partial sum over 'model' (this rank's heads,
+    ``mlp``, ``rnn`` or expert slice), reduce-scattered along the sequence
+    under sequence parallelism and all-reduced without; a complete output
+    is cut to this rank's piece of the sequence (``seq_shard``)."""
+    ag = tp_group()
+    if ag is None:
+        return y
+    if partial:
+        return reduce_scatter(y, ag, 1) if shd.seq_parallel() else all_reduce_sum(y, ag)
+    return seq_shard(y)
+
+
+def seq_shard(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """This rank's piece of a whole sequence on ``dim`` under sequence
+    parallelism (a view; its gradient lands in that piece only), else
+    ``x``."""
+    if not shd.seq_parallel():
+        return x
+    ag = tp_group()
+    n = x.shape[dim] // ag.size
+    return x.narrow(dim, ag.index * n, n)

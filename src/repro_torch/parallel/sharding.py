@@ -12,7 +12,8 @@ flag for flag (see its docstring for why each exists):
     ``moe_apply_shardmap`` (``_moe_shardmap``);
   * ``train_dp_ep``: ZeRO-3 over 'data', experts owned by 'model' ranks;
     MoE through ``moe_apply_ep_shardmap`` (``_moe_ep``);
-  * ``decode``, ``decode_b1``: serving (dense MoE, ``_moe_dense``).
+  * ``decode``, ``decode_b1``: serving (dense MoE, ``_moe_dense``); they
+    do not run on a mesh in the port yet.
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with
 ``mesh_dim_names``; anything with ``mesh_dim_names`` and ``shape`` (and
@@ -22,9 +23,9 @@ or a tuple of axis names — the entries of the reference's
 ``PartitionSpec``.
 
 The active (mesh, rules) pair is process-global, installed by the caller
-(``use``); ``logical_constraint`` is a no-op: under the ZeRO layouts the
-port runs (``train_dp``, ``train_dp_ep``) every activation is already local
-to its rank, and nothing is gathered or moved. ``tree_shardings`` maps
+(``use``). Every preset but the two serving ones runs a train step on a
+mesh (``MESH_PRESETS``); ``logical_constraint`` says what the port does
+at each of the reference's constraint points. ``tree_shardings`` maps
 full leaves to this rank's local shards (``Placement``), the slice JAX's
 ``addressable_shards`` gives the device at the same mesh coordinate.
 """
@@ -68,8 +69,11 @@ _PRESETS = {
     "train_multi_moe": _mk(seq="model", embed="data", _moe_dense=True),
 }
 
-#: the presets the port executes on a mesh; the rest resolve specs only
-MESH_PRESETS = ("train_dp", "train_dp_ep")
+#: the presets the port executes on a mesh (a train step; ``train`` and
+#: ``prefill_moe`` a prefill too); ``decode`` and ``decode_b1`` resolve
+#: specs only
+MESH_PRESETS = ("train", "train_tp", "train_tp_nosp", "train_ep", "train_dp", "train_dp_ep",
+                "prefill_moe", "train_multi_moe")
 
 _ACTIVE = {"mesh": None, "rules": _PRESETS["train"], "name": "train"}
 
@@ -195,10 +199,41 @@ def tree_specs(spec_tree, rules=None, mesh=None, shape_tree=None):
                     spec_tree, shape_tree)
 
 
+def seq_parallel() -> bool:
+    """Whether the active rules shard the activations' sequence over a
+    'model' axis of more than one rank (Megatron sequence parallelism:
+    ``train``, ``train_tp``, ``train_ep``, ``prefill_moe``,
+    ``train_multi_moe``)."""
+    mesh = _ACTIVE["mesh"]
+    return (mesh is not None and mesh_shape(mesh).get("model", 1) > 1
+            and axes_for("seq") == ("model",))
+
+
 def logical_constraint(x, names):
-    """The reference's ``with_sharding_constraint`` by logical names. Under
-    the layouts the port runs, activations are local to their rank, so this
-    returns ``x`` unchanged, with or without a mesh."""
+    """The reference's ``with_sharding_constraint`` by logical names; it
+    returns ``x`` unchanged. The port moves activations explicitly where
+    the reference constrains them (``parallel.collectives``: ``tp_in``,
+    ``tp_out``, ``seq_shard``):
+
+    * the residual stream ``("batch", "seq", "act_embed")`` between blocks:
+      this rank's rows (split over the batch axes) and, under sequence
+      parallelism, its piece of the sequence (``seq_shard`` after the
+      embedding);
+    * a block's entry (attention's q/k/v on ``act_heads`` / ``act_kv``, the
+      MoE's ``("batch", None, "act_embed")``, likewise the MLP, RG-LRU and
+      RWKV inputs): the whole sequence, all-gathered over 'model'
+      (``tp_in``); the projections then run on this rank's heads, ``mlp``,
+      ``rnn`` or expert slice;
+    * a block's output back to ``("batch", "seq", "act_embed")``: a
+      row-parallel partial sum reduce-scattered over 'model' along the
+      sequence, or all-reduced without sequence parallelism
+      (``train_tp_nosp``); a complete output cut to this rank's piece;
+    * the logits ``("batch", "seq", "vocab")``: the sequence piece with the
+      whole vocabulary under sequence parallelism ('model' is used by
+      ``seq``), the vocabulary's slice over the whole sequence without.
+
+    Under the ZeRO-3 presets every activation is local to its rank and
+    nothing moves."""
     return x
 
 

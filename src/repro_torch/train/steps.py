@@ -21,11 +21,14 @@ full width the state costs about 16 bytes a parameter on the card: f32
 masters, ``m`` and ``v`` (12), and the bf16 working weights and their
 gradients (4).
 
-On a mesh (``make_mesh_train_step``, ZeRO-3 under ``train_dp`` and
-``train_dp_ep``) a rank holds only its shards of the masters, ``m`` and
-``v`` (each leaf's placement from ``param_specs`` and the rules), and the
-working model is gathered from them each step: 12 bytes a parameter
-divided by the ranks, plus the full working weights and gradients.
+On a mesh (``make_mesh_train_step``: every preset in
+``sharding.MESH_PRESETS``) a rank holds only its shards of the masters,
+``m`` and ``v`` (each leaf's placement from ``param_specs`` and the
+rules), and the working model is gathered from them each step: 12 bytes a
+parameter divided by the ranks, plus the working weights and gradients,
+whole under ZeRO-3 (``train_dp``, ``train_dp_ep``) and this rank's slice
+over 'model' where the TP + SP presets keep a dim sharded at use
+(``use_keep``).
 """
 from __future__ import annotations
 
@@ -36,7 +39,9 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from repro_torch.models.layers import vocab_parallel_lse
 from repro_torch.models.moe import mesh_variant
 from repro_torch.models.transformer import (ModelConfig, Transformer, forward_train, loss_fn,
                                             param_specs, serve_step)
@@ -44,7 +49,7 @@ from repro_torch.optim import adamw
 from repro_torch.optim.schedule import cosine_warmup
 from repro_torch.parallel import sharding
 from repro_torch.parallel.collectives import (all_reduce_, gather, group_for, reduce_scatter,
-                                              reserve_staging)
+                                              reserve_staging, seq_shard)
 from repro_torch.parallel.sharding import mesh_shape, spec_axes
 
 
@@ -211,7 +216,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig = adamw.AdamWCo
 
     Under a mesh (``sharding.use(mesh, rules)`` when the step is made) the
     step is ``make_mesh_train_step``'s: the state holds this rank's shards
-    and the batch is the global one. Only the ZeRO-3 presets run there."""
+    and the batch is the global one. Every train preset runs there; the
+    serving presets (``decode``, ``decode_b1``) raise."""
     mesh = sharding.active_mesh()
     if mesh is not None:
         return make_mesh_train_step(cfg, mesh, sharding.active_rules_name(), opt_cfg, peak_lr)
@@ -234,7 +240,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig = adamw.AdamWCo
 
 def make_prefill_step(cfg: ModelConfig):
     """Forward-only (inference prefill) of ``params``, a ``Transformer``:
-    logits of the full prompt."""
+    logits of the full prompt. Under a mesh (``sharding.use(mesh, rules)``
+    when the step is made) the step is ``make_mesh_prefill_step``'s."""
+    mesh = sharding.active_mesh()
+    if mesh is not None:
+        return make_mesh_prefill_step(cfg, mesh, sharding.active_rules_name())
 
     @torch.no_grad()
     def step(params: Transformer, batch):
@@ -254,7 +264,8 @@ def make_serve_step(cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
-# training on a mesh: ZeRO-3 (train_dp, train_dp_ep)
+# training on a mesh: ZeRO-3 (train_dp, train_dp_ep) and TP + SP (train,
+# train_tp, train_tp_nosp, train_ep, train_multi_moe, prefill_moe)
 # ---------------------------------------------------------------------------
 
 def layout_leaves(layout, path=()):
@@ -289,11 +300,12 @@ def shard_tree(tree, layout, device) -> dict:
     return sharding.tree_map(lambda pl, full: take_shard(pl, full, device), layout, tree)
 
 
-def gather_leaf(shard: torch.Tensor, placement, mesh) -> torch.Tensor:
+def gather_leaf(shard: torch.Tensor, placement, mesh, keep=()) -> torch.Tensor:
     """The full leaf from every rank's shard (collective over the leaf's
-    sharded axes; no gradient)."""
+    sharded axes; no gradient); the dims in ``keep`` stay this rank's
+    slice."""
     for d, entry in enumerate(placement.spec):
-        if entry is not None:
+        if entry is not None and d not in keep:
             shard = gather(shard, group_for(mesh, spec_axes(entry)), d)
     return shard
 
@@ -303,13 +315,9 @@ def gather_tree(tree, layout, mesh) -> dict:
     return sharding.tree_map(lambda pl, t: gather_leaf(t, pl, mesh), layout, tree)
 
 
-def init_mesh_state(cfg: ModelConfig, seed: int, mesh, device, layout=None) -> TrainState:
-    """This rank's shards of the step-0 state ``trainer.init_state(cfg,
-    seed, ...)`` draws: the f32 initialisation is drawn whole on ``device``
-    (the same draws on every rank) and only this rank's shards are kept."""
-    from repro_torch.models.transformer import init_params
-    layout = layout or mesh_layout(cfg, mesh)
-    model = init_params(dataclasses.replace(cfg, dtype="float32"), seed, device)
+def mesh_shards(model: Transformer, layout, device) -> dict:
+    """This rank's shards (f32 copies on ``device``) of ``model``'s weights
+    in the reference's tree, under ``layout``."""
     shards: dict = {}
     flat = dict(layout_leaves(layout))
     for path, index, p in param_paths(model):
@@ -321,6 +329,17 @@ def init_mesh_state(cfg: ModelConfig, seed: int, mesh, device, layout=None) -> T
         if index == 0:
             _put(shards, path, torch.empty(pl.local_shape, dtype=torch.float32, device=device))
         _at(shards, path)[index].copy_(one.take(p.detach()))
+    return shards
+
+
+def init_mesh_state(cfg: ModelConfig, seed: int, mesh, device, layout=None) -> TrainState:
+    """This rank's shards of the step-0 state ``trainer.init_state(cfg,
+    seed, ...)`` draws: the f32 initialisation is drawn whole on ``device``
+    (the same draws on every rank) and only this rank's shards are kept."""
+    from repro_torch.models.transformer import init_params
+    layout = layout or mesh_layout(cfg, mesh)
+    model = init_params(dataclasses.replace(cfg, dtype="float32"), seed, device)
+    shards = mesh_shards(model, layout, device)
     del model
     return train_state_init(shards)
 
@@ -331,15 +350,55 @@ def _unmentioned(placement, mesh) -> tuple:
     return tuple(a for a in mesh.mesh_dim_names if a not in used)
 
 
-class _Leaf:
-    """One leaf of the master tree on this rank: its placement, master /
-    ``m`` / ``v`` shards, the working model's parameters that use it
-    ((index, parameter)), and either a full working buffer gathered from
-    the masters each step or, for an MoE shard_map variant's expert
-    leaves, none (the parameters are views of the master shard)."""
+#: the dims a weight may keep sharded over 'model' at use (the reference's
+#: ``wuse`` names, and the unit a slice must hold whole), by the leaf's
+#: last two keys; every other sharded dim is gathered
+_USE = {("attn", "wq"): ((-1, "heads"),), ("attn", "wk"): ((-1, "kv"),),
+        ("attn", "wv"): ((-1, "kv"),), ("attn", "wo"): ((-2, "heads"),),
+        ("mlp", "w_gate"): ((-1, None),), ("mlp", "w_up"): ((-1, None),),
+        ("mlp", "w_down"): ((-2, None),),
+        ("moe", "w_gate"): ((-3, None), (-1, None)), ("moe", "w_up"): ((-3, None), (-1, None)),
+        ("moe", "w_down"): ((-3, None), (-2, None)),
+        ("rnn", "w_x"): ((-1, None),), ("rnn", "w_gate"): ((-1, None),),
+        ("rnn", "w_out"): ((-2, None),), ("rnn", "conv_w"): ((-1, None),),
+        ("rnn", "lam"): ((-1, None),),
+        **{("tm", k): ((-1, "rwkv"),) for k in ("w_r", "w_k", "w_v", "w_g", "w_decay",
+                                                 "decay_base", "bonus_u")},
+        ("tm", "w_o"): ((-2, "rwkv"),), ("tm", "cm_k"): ((-1, None),),
+        ("tm", "cm_v"): ((-2, None),),
+        ("embed", "table"): ((0, None),), ("lm_head", "w"): ((-1, "vocab"),)}
 
-    def __init__(self, path, placement, master, m, v, variant: bool):
-        self.path, self.placement = path, placement
+
+def use_keep(cfg: ModelConfig, path, placement, mesh) -> tuple:
+    """The dims of a leaf that stay this rank's slice over 'model' in the
+    working model under the active rules: a dim sharded over 'model' alone
+    whose use keeps it so (``_USE``), where the slice holds whole heads
+    (query heads; kv heads that split with them; RWKV's 64-wide heads);
+    the lm head's vocabulary only without sequence parallelism (the
+    reference's logits then carry the sequence over 'model', so the head is
+    whole). Nothing stays sliced where the batch is split over 'model'
+    (ZeRO-3): the 'model' ranks hold other rows there."""
+    if "model" in sharding.batch_axes():
+        return ()
+    m = mesh_shape(mesh).get("model", 1)
+    units = {None: True, "heads": cfg.n_heads % m == 0,
+             "kv": cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0,
+             "rwkv": (cfg.d_model // 64) % m == 0, "vocab": not sharding.seq_parallel()}
+    n = len(placement.shape)
+    return tuple(d % n for d, unit in _USE.get(tuple(path[-2:]), ())
+                 if placement.spec[d] == "model" and units[unit])
+
+
+class _Leaf:
+    """One leaf of the master tree on this rank: its placement, the dims
+    its working copy keeps sharded (``keep``), master / ``m`` / ``v``
+    shards, the working model's parameters that use it ((index,
+    parameter)), and either a working buffer gathered from the masters each
+    step or, for an MoE shard_map variant's expert leaves, none (the
+    parameters are views of the master shard)."""
+
+    def __init__(self, path, placement, keep, master, m, v, variant: bool):
+        self.path, self.placement, self.keep = path, placement, keep
         self.master, self.m, self.v = master, m, v
         self.variant = variant
         self.params: list = []
@@ -362,24 +421,27 @@ def _variant_leaves(cfg: ModelConfig) -> bool:
 
 
 def bind_mesh(cfg: ModelConfig, params: dict, m: dict, v: dict, mesh, layout) -> MeshBound:
-    """A full ``Transformer`` on the shards' device whose weights are the
-    working copies of the masters: a gathered buffer a leaf (in the
-    weight's dtype; ``refresh_mesh`` fills it), except the MoE leaves an
-    MoE variant gathers itself, whose weights are the f32 master shards."""
+    """A ``Transformer`` on the shards' device whose weights are the working
+    copies of the masters: a gathered buffer a leaf (in the weight's dtype,
+    whole but for its ``use_keep`` dims; ``refresh_mesh`` fills it), except
+    the MoE leaves an MoE variant gathers itself, whose weights are the f32
+    master shards."""
     device = adamw.leaves(params)[0].device
     model = Transformer(cfg, device)
     variant = _variant_leaves(cfg)
     by_path = {}
     for path, pl in layout_leaves(layout):
-        by_path[path] = _Leaf(path, pl, _at(params, path), _at(m, path), _at(v, path),
-                              variant and "moe" in path)
+        by_path[path] = _Leaf(path, pl, use_keep(cfg, path, pl, mesh), _at(params, path),
+                              _at(m, path), _at(v, path), variant and "moe" in path)
     for path, index, p in param_paths(model):
         leaf = by_path[path]
         if leaf.variant:
             p.data = leaf.master if index is None else leaf.master[index]
         else:
             if leaf.work is None:
-                leaf.work = torch.empty(leaf.placement.shape, dtype=p.dtype, device=device)
+                shape = [n if d in leaf.keep else leaf.placement.shape[d]
+                         for d, n in enumerate(leaf.placement.local_shape)]
+                leaf.work = torch.empty(shape, dtype=p.dtype, device=device)
             p.data = leaf.work if index is None else leaf.work[index]
         p.requires_grad_(True)
         leaf.params.append((index, p))
@@ -398,22 +460,27 @@ def refresh_mesh(b: MeshBound) -> None:
     rounded to the weight's dtype (nearest even), then all-gathered."""
     for leaf in b.leaves:
         if not leaf.variant:
-            leaf.work.copy_(gather_leaf(leaf.master.to(leaf.work.dtype), leaf.placement, b.mesh))
+            leaf.work.copy_(gather_leaf(leaf.master.to(leaf.work.dtype), leaf.placement, b.mesh,
+                                        leaf.keep))
 
 
 @torch.no_grad()
 def _sync_grads(b: MeshBound) -> list:
-    """Each leaf's gradient shard, summed over the ranks: a gathered leaf's
-    full gradient reduce-scattered over its sharded axes (in the weight's
-    dtype), a variant's shard as its gather's backward left it; then
-    all-reduced over the axes the leaf is replicated on."""
+    """Each leaf's gradient shard, summed over the ranks: a working copy's
+    gradient reduce-scattered over the axes it was gathered over (in the
+    weight's dtype; a kept dim is this rank's already), a variant's shard
+    as its gather's backward left it; then all-reduced over the axes the
+    leaf is replicated on. Every rank's backward starts from its share of
+    the loss, so a replicated leaf's gradient is a partial sum there
+    (under sequence parallelism a norm sees this rank's tokens; without it
+    this rank's share of each cotangent)."""
     out = []
     for leaf in b.leaves:
         gs = [torch.zeros_like(p) if p.grad is None else p.grad for _, p in leaf.params]
         g = gs[0] if leaf.params[0][0] is None else torch.stack(gs)
         if not leaf.variant:
             for d, entry in enumerate(leaf.placement.spec):
-                if entry is not None:
+                if entry is not None and d not in leaf.keep:
                     g = reduce_scatter(g, group_for(b.mesh, spec_axes(entry)), d)
         rest = _unmentioned(leaf.placement, b.mesh)
         if rest:
@@ -438,18 +505,29 @@ def _mesh_norm(b: MeshBound, grads: list) -> torch.Tensor:
 def _mesh_loss(model: Transformer, cfg: ModelConfig, batch, world, aux_weight: float = 0.01,
                z_weight: float = 1e-4):
     """This rank's share of the reference's loss over the GLOBAL batch: the
-    masked sums over its rows divided by the all-reduced mask count, plus
-    its share of the aux loss (the MoE variants average it over the ranks
-    already). The shares sum to the loss. Returns (share, (loss, ce, aux)),
-    the metrics global."""
+    masked sums over the tokens of its logits' block divided by the
+    all-reduced mask count, plus its share of the aux loss (the same on
+    every rank: the plain MoE's fractions and the variants' aux are
+    averaged over the ranks). A token that several ranks hold whole (every
+    'model' rank without sequence parallelism) is in each one's count, so
+    each holds its share of it: the shares sum to the loss. Returns (share,
+    (loss, ce, aux)), the metrics global. The block is this rank's rows,
+    and under sequence parallelism its piece of the sequence (the labels
+    cut to it; a vlm's patch positions masked); logits of a vocabulary
+    slice (without sequence parallelism) take their logsumexp over
+    'model'."""
     logits, aux = forward_train(model, cfg, batch)
     labels = batch["labels"]
     if cfg.family == "vlm":
-        logits = logits[:, -labels.shape[1]:]
+        labels = F.pad(labels, (batch["patch_embeds"].shape[1], 0), value=-1)
+    labels = seq_shard(labels)
     mask = (labels >= 0).float()
     safe = torch.clamp(labels, min=0).long()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+    if logits.shape[-1] < cfg.vocab_size:
+        lse, ll = vocab_parallel_lse(logits, safe, cfg.vocab_size)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, safe[..., None])[..., 0]
     sums = torch.stack([torch.sum((lse - ll) * mask), torch.sum(torch.square(lse) * mask),
                         mask.sum()])
     totals = all_reduce_(sums.detach().clone(), world)
@@ -461,38 +539,79 @@ def _mesh_loss(model: Transformer, cfg: ModelConfig, batch, world, aux_weight: f
     return share, (loss, ce, aux.detach())
 
 
-def local_rows(batch: dict, world) -> dict:
-    """This rank's rows of the global batch: rows split over every rank, in
-    the order of the rank's index over the mesh (the first axis major), as
-    the batch axes shard them."""
+def local_rows(batch: dict, rows) -> dict:
+    """This rank's rows of the global batch: rows split over the ranks of
+    ``rows`` (the group of the batch axes), in the order of the rank's index
+    over them (the first axis major), as the batch axes shard them."""
     B = next(iter(batch.values())).shape[0]
-    if B % world.size:
-        raise ValueError(f"a global batch of {B} rows does not split over {world.size} ranks")
-    n = B // world.size
-    return {k: v[world.index * n:(world.index + 1) * n] for k, v in batch.items()}
+    if B % rows.size:
+        raise ValueError(f"a global batch of {B} rows does not split over {rows.size} ranks")
+    n = B // rows.size
+    return {k: v[rows.index * n:(rows.index + 1) * n] for k, v in batch.items()}
+
+
+def _row_group(mesh, batch: dict):
+    """The group of the batch axes the global batch's rows split over."""
+    return group_for(mesh, sharding.batch_axes(next(iter(batch.values())).shape[0]))
+
+
+def _check_preset(rules) -> None:
+    if rules not in sharding.MESH_PRESETS:
+        raise ValueError(f"preset {rules!r} does not run on a mesh in the port (only "
+                         f"{', '.join(sharding.MESH_PRESETS)}: the serving presets "
+                         f"are a later slice)")
+
+
+def make_mesh_prefill_step(cfg: ModelConfig, mesh, rules: str):
+    """The prefill on ``mesh`` under ``rules`` (``train``, ``prefill_moe``,
+    or any train preset): (this rank's shards of the f32 master tree, the
+    global batch) -> this rank's block of the f32 logits, every rank
+    calling it together: its rows, and under sequence parallelism its piece
+    of the sequence with the whole vocabulary (the reference's
+    ``("batch", "seq", "vocab")`` block). The working model is gathered
+    from the shards at every call."""
+    _check_preset(rules)
+    with sharding.use(mesh, rules):
+        layout = mesh_layout(cfg, mesh)
+    held: dict = {}
+
+    @torch.no_grad()
+    def step(params: dict, batch):
+        with sharding.use(mesh, rules):
+            if held.get("params") is not params:
+                held["params"] = params
+                held["bound"] = bind_mesh(cfg, params, params, params, mesh, layout)
+            b = held["bound"]
+            refresh_mesh(b)
+            logits, _ = forward_train(b.model, cfg, local_rows(batch, _row_group(mesh, batch)))
+        return logits
+
+    step.layout = layout
+    return step
 
 
 def make_mesh_train_step(cfg: ModelConfig, mesh, rules: str,
                          opt_cfg: adamw.AdamWConfig = adamw.AdamWConfig(),
                          peak_lr: float = 3e-4):
-    """The ZeRO-3 train step on ``mesh`` under ``rules`` (``train_dp`` or
-    ``train_dp_ep``): (state of this rank's shards, the global batch) ->
-    (state, metrics), updated in place, every rank calling it together.
+    """The train step on ``mesh`` under ``rules`` (any of
+    ``sharding.MESH_PRESETS``): (state of this rank's shards, the global
+    batch) -> (state, metrics), updated in place, every rank calling it
+    together.
 
     Each step gathers the working model from the master shards (each shard
-    rounded to the weight's dtype, then all-gathered; an MoE variant's
-    expert leaves are int8-gathered inside the variant instead), runs the
-    forward and backward on this rank's rows, reduce-scatters each sharded
-    leaf's gradient and all-reduces each replicated one, takes the global
-    norm over every rank and runs AdamW on the local shards. The metrics
-    (loss, ce, aux, lr, grad_norm) are the global ones, the same on every
-    rank. ``step.held["grads"]`` keeps the last step's gradient shards.
-    Any other preset raises: the TP+SP and serving presets do not run on a
-    mesh in the port."""
-    if rules not in sharding.MESH_PRESETS:
-        raise ValueError(f"preset {rules!r} does not run on a mesh in the port (only "
-                         f"{', '.join(sharding.MESH_PRESETS)}: the TP+SP and serving presets "
-                         f"are a later slice)")
+    rounded to the weight's dtype, then all-gathered over the axes it is
+    not sharded on at use, ``use_keep``; an MoE variant's expert leaves are
+    int8-gathered inside the variant instead), runs the forward and
+    backward on this rank's rows (split over the batch axes; under
+    sequence parallelism its piece of the sequence between the blocks,
+    ``models/transformer.py``), reduce-scatters each leaf's gradient over
+    the axes its working copy was gathered over and all-reduces it over
+    those it is replicated on, takes the global norm over every rank and
+    runs AdamW on the local shards. The metrics (loss, ce, aux, lr,
+    grad_norm) are the global ones, the same on every rank.
+    ``step.held["grads"]`` keeps the last step's gradient shards. The
+    serving presets raise."""
+    _check_preset(rules)
     with sharding.use(mesh, rules):
         layout = mesh_layout(cfg, mesh)
     held: dict = {}
@@ -504,9 +623,10 @@ def make_mesh_train_step(cfg: ModelConfig, mesh, rules: str,
                 held["trees"] = trees
                 held["bound"] = bind_mesh(cfg, *trees, mesh, layout)
             b = held["bound"]
-            rows = local_rows(batch, b.world)
             refresh_mesh(b)
-            share, (loss, ce, aux) = _mesh_loss(b.model, cfg, rows, b.world)
+            share, (loss, ce, aux) = _mesh_loss(b.model, cfg,
+                                                local_rows(batch, _row_group(mesh, batch)),
+                                                b.world)
             share.backward()
             grads = _sync_grads(b)
             gnorm = _mesh_norm(b, grads)

@@ -175,6 +175,20 @@ REFERENCE = textwrap.dedent("""
         jax.device_put(st.opt.count, NamedSharding(small, P()))),
         jax.device_put(st.step, NamedSharding(small, P())))
     out["reshard"] = shards(small, got)
+
+    # the reshard and one step under the default preset, train
+    specs = param_specs(yi)
+    with sharding.use(small, "train"):
+        sh = shardings(small, specs, st)
+        out["reshard_train"] = shards(small, jax.device_put(st, sh))
+        _, lazy, _ = CheckpointManager(inp["commit_dir"]).restore_manifest()
+        st = jax.device_put(state({k: np.asarray(v.get()) for k, v in lazy.items()}, specs), sh)
+        b_sh = NamedSharding(small, sharding.spec_for(("batch", None), dims=(4, 64)))
+        step = jax.jit(make_train_step(yi), in_shardings=(sh, {"tokens": b_sh, "labels": b_sh}),
+                       out_shardings=(sh, NamedSharding(small, P())))
+        st, m = step(st, {k: jnp.asarray(v) for k, v in inp["elastic_batch"].items()})
+    out["elastic_train_metrics"] = {k: float(v) for k, v in m.items()}
+    out["elastic_train_state"] = {k: np.asarray(v) for k, v in _flatten(st)[0].items()}
     (d / "ref.pkl").write_bytes(pickle.dumps(out))
 """)
 
@@ -382,13 +396,13 @@ def test_mesh_train_steps(runs, arch):
 
 
 def test_other_presets_and_meshes_refused(runs):
-    """Under a mesh every preset but train_dp and train_dp_ep raises, naming
-    itself; the production mesh refuses a world of 4; a mesh made without
-    ``device`` refuses a machine without a card."""
+    """Under a mesh the serving presets, decode and decode_b1, raise, naming
+    themselves; the production mesh refuses a world of 4; a mesh made
+    without ``device`` refuses a machine without a card."""
     from repro_torch.parallel import sharding
     _, port, _ = runs
-    others = set(sharding.presets()) - {"train_dp", "train_dp_ep"}
-    assert len(others) == 8
+    others = set(sharding.presets()) - set(sharding.MESH_PRESETS)
+    assert others == {"decode", "decode_b1"}
     for r in port:
         for preset in others:
             assert f"preset '{preset}'" in r[f"refused_{preset}"]
@@ -432,3 +446,26 @@ def test_elastic_step_and_sharded_commit(runs):
     got = {".params/" + k[2:]: v for k, v in port[0]["elastic_params"].items()}
     want = {k: v for k, v in one_state.items() if k.startswith(".params")}
     _hold_state(got, want, "yi-6b", one_m[0]["lr"])
+
+
+def test_elastic_train_reshard_matches_reference(runs):
+    """After the shrink to (1, 2) the commit resharded under ``train`` (the
+    reference's default preset: embed over 'data', heads, kv, mlp, vocab
+    over 'model') equals the reference's shards at the same coordinate."""
+    _, port, ref = runs
+    for r in port[:2]:
+        want = ref["reshard_train"][r["coord"]]
+        assert set(r["reshard_train"]) == set(want)
+        for k, v in want.items():
+            assert np.array_equal(r["reshard_train"][k], v), k
+
+
+def test_elastic_train_step_matches_reference(runs):
+    """``relower_for_mesh`` defaults to ``train``: its step on the shrunk
+    (1, 2) mesh from the 2 x 2 mesh's commit is held to the reference's
+    sharded step under ``train`` on the same mesh, at the bf16 bounds."""
+    inp, port, ref = runs
+    assert port[0]["elastic_train_metrics"] == port[1]["elastic_train_metrics"]
+    _hold_metrics(port[0]["elastic_train_metrics"], ref["elastic_train_metrics"])
+    _hold_state(port[0]["elastic_train_state"], ref["elastic_train_state"], "yi-6b",
+                ref["elastic_train_metrics"]["lr"])

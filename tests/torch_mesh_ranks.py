@@ -9,7 +9,8 @@ test compares to ``OUT_DIR/rank{RANK}.pkl``: this rank's state shards,
 ``compressed_psum`` over 'data' for 3 steps, ``fsdp_gather_int8``'s forward
 and backward, both MoE shard_map variants on this rank's rows, 3 mesh train
 steps of yi-6b and mixtral-8x7b (reduced, bf16) and the elastic runbook
-(a sharded commit, the shrink to (1, 2), the restore and one step).
+(a sharded commit, the shrink to (1, 2), the restore and one step, under
+``train_dp`` and under ``train``).
 Imports no JAX.
 """
 from __future__ import annotations
@@ -24,15 +25,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def launch(world: int, in_dir, out_dir, timeout: float = 300.0):
-    """Start ``world`` gloo ranks (file init under ``out_dir``); returns a
-    function that waits for them, fails if a rank fails or the group
-    outlives ``timeout``, and returns every rank's pickled result."""
+def launch(world: int, in_dir, out_dir, timeout: float = 300.0, script=None):
+    """Start ``world`` gloo ranks of ``script`` (default: this one; file
+    init under ``out_dir``); returns a function that waits for them, fails
+    if a rank fails or the group outlives ``timeout``, and returns every
+    rank's pickled result."""
     out_dir = Path(out_dir)
     init = out_dir / "pg"
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
     procs = [subprocess.Popen(
-        [sys.executable, str(Path(__file__).resolve()), str(r), str(world), str(init),
+        [sys.executable, str(Path(script or __file__).resolve()), str(r), str(world), str(init),
          str(in_dir), str(out_dir)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env, cwd=ROOT)
         for r in range(world)]
@@ -185,6 +187,19 @@ def run(rank: int, world: int, inputs: dict, out: dict) -> None:
     out["elastic_metrics"] = {k: float(v) for k, v in m.items()}
     full = TS.gather_tree(st.params, step.layout, small)
     out["elastic_params"] = {k: v.numpy().copy() for k, v in flatten({"p": full}).items()}
+
+    # ---- the same under the reference's default preset, train ----
+    _, lazy, _ = CheckpointManager(inputs["fixed_dir"]).restore_manifest()
+    st = interop.train_state_to_mesh(yi, lazy, small, "train", device="cpu")
+    out["reshard_train"] = {k: v.numpy().copy() for k, v in flatten(st).items()}
+    step = elastic.relower_for_mesh(yi, small)
+    _, lazy, _ = CheckpointManager(inputs["commit_dir"]).restore_manifest()
+    st = interop.train_state_to_mesh(yi, lazy, small, device="cpu")
+    st, m = step(st, {k: torch.from_numpy(v) for k, v in inputs["elastic_batch"].items()})
+    out["elastic_train_metrics"] = {k: float(v) for k, v in m.items()}
+    full = [TS.gather_tree(t, step.layout, small) for t in (st.params, st.opt.m, st.opt.v)]
+    out["elastic_train_state"] = {k: v.numpy().copy() for k, v in flatten(TS.TrainState(
+        full[0], TS.adamw.AdamWState(full[1], full[2], st.opt.count), st.step)).items()}
     sharding.set_active(None)
 
 

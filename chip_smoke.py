@@ -266,6 +266,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -3584,10 +3585,34 @@ MESH_CP_LEAVES = (("norm_f", "scale"), ("blocks_0", "attn", "wq"), ("blocks_0", 
 #: the phase's share of the run's budget, inside the DHT phase's wall time
 #: (on NVIDIA H100 80GB HBM3, 700.00 W: 29.9 and 31.6 s in the ranks in two
 #: whole runs with 3 train_dp steps; 32.9 s with 2 train_dp and 2 train
-#: steps, whose steps run ~20 % slower on a slow host)
-MESH_PHASE_S = 36.0
+#: steps, whose steps run ~20 % slower on a slow host; the serving presets
+#: 12.5 s more in the mesh phase run alone)
+MESH_PHASE_S = 50.0
 MESH_DIR = Path(__file__).resolve().parent / "build" / "mesh"
 MESH_MOE = (("shardmap", "mixtral-8x7b", "train_dp"), ("ep", "phi3.5-moe-42b-a6.6b", "train_dp_ep"))
+#: the serving presets after the train steps: (preset, lanes), the
+#: weights phase 13's seed-0 masters rounded to bf16, a ring of
+#: MESH_SERVE_CACHE slots (split 512 a model rank under decode, over 'data'
+#: under decode_b1); MESH_SERVE_PROMPT prompt tokens fed one step at a time,
+#: then MESH_SERVE_NEW greedy steps, the tokens rank 0's one-device run's
+MESH_SERVES = (("decode", 4), ("decode_b1", 1))
+MESH_SERVE_CACHE = 1024
+MESH_SERVE_PROMPT, MESH_SERVE_NEW = 16, 8
+#: the serve runs start from a seeded random ring with ``pos`` here, 12
+#: slots before the pieces' split: the 24 steps write slots 500-523, in
+#: both pieces, and every softmax combines two pieces that hold valid slots
+MESH_SERVE_START = MESH_SERVE_CACHE // 2 - 12
+#: each step's logits within this many bf16 roundoffs of the one-device
+#: step's largest (the CPU tests' LOGITS_K, tests/test_torch_mesh_tp.py);
+#: the final cache pieces likewise of the cache's largest magnitude
+MESH_SERVE_K = 4.0
+#: decode_32k's shape for mesh_on_cards: (lanes, cache length), and the
+#: steps it times after its first
+DECODE_32K = (128, 32768)
+DECODE_32K_STEPS = 8
+#: lanes a rank of decode_32k's first layer whose attention is held to a
+#: plain f32 softmax over the whole ring (the pieces gathered for them)
+DECODE_32K_CHECKED = 2
 
 
 #: the master leaves phase 13 and the mesh phase are compared on: (path,
@@ -3717,12 +3742,15 @@ def _mesh_run(rank: int, preset: str, step, state, mesh, batches, device) -> dic
     return out
 
 
-def _mesh_rank(rank: int, world: int, device, cfg, batches, commit_dir: str) -> dict:
+def _mesh_rank(rank: int, world: int, device, cfg, batches, commit_dir: str,
+               serves=MESH_SERVES) -> dict:
     """The mesh phase on one of the DHT's card ranks: a 2 x 2 mesh over the
     4 ranks; ``cfg`` (yi-6b at its published widths) from seed 0 (one f32
     draw, sharded under each preset of ``MESH_RUNS``; the later presets'
     shards wait on the host), ``MESH_STEPS`` steps on phase 13's batches
-    under each (``_mesh_run``); then both MoE shard_map variants on this
+    under each (``_mesh_run``); the serving presets on the same draw
+    rounded to bf16 (``_mesh_serve_prepare``, ``_mesh_serve_run``); then
+    both MoE shard_map variants on this
     rank's row and the elastic runbook at reduced yi-6b (a sharded commit,
     the shrink to (1, 2), ranks 2 and 3 leave the mesh, the restore, the
     reshard, one step under the default preset, ``train``). Returns what
@@ -3753,6 +3781,9 @@ def _mesh_rank(rank: int, world: int, device, cfg, batches, commit_dir: str) -> 
             steps[preset] = TS.make_train_step(cfg)
         shards[preset] = TS.mesh_shards(model, steps[preset].layout,
                                         device if i == 0 else "cpu")
+    t1 = time.perf_counter()
+    serve = _mesh_serve_prepare(rank, mesh, cfg, model, device, serves) if serves else None
+    serve_s = time.perf_counter() - t1
     del model
     gc.collect()
     sync()
@@ -3766,6 +3797,17 @@ def _mesh_rank(rank: int, world: int, device, cfg, batches, commit_dir: str) -> 
         if cuda:
             torch.cuda.empty_cache()
     out["main_s"] = time.perf_counter() - t0
+
+    # ---- the serving presets (decode, decode_b1) on the same weights ----
+    out["serve"] = None
+    if serves:
+        t1 = time.perf_counter()
+        out["serve"] = _mesh_serve_run(rank, mesh, cfg, serve, device)
+        out["serve"]["seconds"] = serve_s + time.perf_counter() - t1
+        if rank == 0:
+            log("  mesh rank 0 serve: " + "; ".join(
+                f"{p} steps ms p50 {np.percentile(r['step_ms'], 50):.1f}"
+                for p, r in out["serve"]["runs"].items()) + f", {out['serve']['seconds']:.1f}s")
 
     # ---- the MoE shard_map variants on this rank's row (reduced, f32) ----
     for key, arch, rules in MESH_MOE:
@@ -3898,8 +3940,9 @@ def mesh_checks(report, card: str, ranks: list, record: dict, commit_dir: str) -
         rr = report.setdefault(kernel, {})
         rr.setdefault("paths", {})["mesh"] = count
         rr["launches"] = sum(rr["paths"].values())
+    serve = mesh_serve_checks([r["serve"] for r in ranks]) if r0["serve"] else {}
     out = dict(ranks=ranks, errs=errs, cp=cp, moe=moe, el_err=el_err, launches=launches,
-               seconds=max(r["seconds"] for r in ranks))
+               serve=serve, seconds=max(r["seconds"] for r in ranks))
     lr_sum = sum(r0["runs"]["train_dp"]["lrs"])
     held = "; ".join(
         f"{p} losses {run['losses']}"
@@ -3910,9 +3953,214 @@ def mesh_checks(report, card: str, ranks: list, record: dict, commit_dir: str) -
     log(f"phase mesh: ok {held}; compressed_psum exact on "
         f"{sum(v[2] for v in cps[0].values())} gradient elements; "
         f"moe shardmap / ep within {moe['shardmap'][0]:.3g} / {moe['ep'][0]:.3g} of their "
-        f"plain computation; elastic step within {el_err:.3g} of the one-device step; "
-        f"launches {launches} ({out['seconds']:.1f}s in the ranks) [{card}]")
+        f"plain computation; elastic step within {el_err:.3g} of the one-device step; serve "
+        + "; ".join(f"{p} logits / cache within {v['logits_k']:.3f} / {v['cache_k']:.3f} bf16 "
+                    f"roundoffs of the one-device step" for p, v in serve.items())
+        + f"; launches {launches} ({out['seconds']:.1f}s in the ranks) [{card}]")
     return out
+
+
+def _serve_tokens(rng, lanes: int, vocab: int) -> np.ndarray:
+    return rng.integers(1, vocab, (lanes, MESH_SERVE_PROMPT)).astype(np.int32)
+
+
+def _serve_state(cfg, lanes: int, seed: int) -> dict:
+    """A serve run's starting decode state, whole on the host: a ring of
+    ``MESH_SERVE_CACHE`` slots filled with seeded random K/V in the cache's
+    dtype, ``pos`` at ``MESH_SERVE_START`` in every lane (the slots from
+    there on masked until written)."""
+    from repro_torch.models import decode_state_init
+    state = decode_state_init(cfg, lanes, MESH_SERVE_CACHE, "cpu")
+    gen = torch.Generator().manual_seed(seed)
+    for leaf in state["blocks_0"].values():
+        leaf.normal_(generator=gen)
+    state["pos"].fill_(MESH_SERVE_START)
+    return state
+
+
+@torch.no_grad()
+def _one_device_serve(cfg, model, device, serves) -> dict:
+    """Rank 0's one-device reference of the mesh's serve runs: ``model``
+    (f32) rounded to a bf16 ``Transformer`` on ``device``; for each
+    (preset, lanes) of ``serves``, from its seeded state (``_serve_state``),
+    a seeded prompt fed one step at a time, then greedy steps. {preset:
+    tokens fed (T, lanes), logits a step, final k / v of every layer (f32
+    numpy)}."""
+    from repro_torch.models import Transformer, serve_step
+    from repro_torch.optim.adamw import map_tree
+    from repro_torch.train.steps import param_paths
+    one = Transformer(cfg, device)
+    src = {(path, index): p for path, index, p in param_paths(model)}
+    for path, index, p in param_paths(one):
+        p.copy_(src[(path, index)])
+    out = {}
+    for i, (preset, lanes) in enumerate(serves):
+        fed = list(_serve_tokens(np.random.default_rng(61 + i), lanes, cfg.vocab_size).T)
+        state = map_tree(lambda t: t.to(device), _serve_state(cfg, lanes, 81 + i))
+        logits = []
+        for t in range(MESH_SERVE_PROMPT + MESH_SERVE_NEW):
+            lg, state = serve_step(one, cfg, state, {"token": torch.from_numpy(fed[t]).to(device)})
+            logits.append(lg.cpu().numpy())
+            if t + 1 >= MESH_SERVE_PROMPT and len(fed) < MESH_SERVE_PROMPT + MESH_SERVE_NEW:
+                fed.append(lg.argmax(-1).to(torch.int32).cpu().numpy())
+        out[preset] = {"tokens": np.stack(fed), "logits": logits,
+                       "cache": {f: state["blocks_0"][f].float().cpu().numpy() for f in "kv"}}
+        del state
+    del one
+    return out
+
+
+def _mesh_serve_prepare(rank: int, mesh, cfg, model, device, serves=MESH_SERVES) -> dict:
+    """Before the train runs, while the seed-0 f32 ``model`` is whole on
+    every rank: rank 0's one-device reference (``_one_device_serve``), its
+    tokens broadcast to every rank, and this rank's bf16 serving weights
+    for each preset, parked on the host until the serve runs."""
+    import torch.distributed as dist
+    from repro_torch.train import steps as TS
+    one = _one_device_serve(cfg, model, device, serves) if rank == 0 else None
+    box = [None if one is None else {p: r["tokens"] for p, r in one.items()}]
+    dist.broadcast_object_list(box, src=0)
+    params = {p: TS.mesh_serve_params(cfg, mesh, p, model, "cpu") for p, _ in serves}
+    return {"one": one, "tokens": box[0], "params": params}
+
+
+def _mesh_serve_run(rank: int, mesh, cfg, prep: dict, device) -> dict:
+    """The serve runs on the mesh, a preset of ``MESH_SERVES`` at a time:
+    this rank's weight slices moved to ``device``, its piece of the seeded
+    starting state (``decode_state_piece`` of ``_serve_state``, whole on
+    the host only), the broadcast tokens fed step by step (the last step
+    traced on the card): each step's ms, bytes into each collective and
+    logits block, the final k / v pieces of the first layer, peak HBM and
+    the cache's GB."""
+    import gc
+    from repro_torch.parallel import collectives, sharding
+    from repro_torch.train import steps as TS
+    cuda = torch.device(device).type == "cuda"
+    out = {"coord": sharding.coordinate(mesh), "one": prep["one"], "runs": {},
+           "layers": cfg.n_layers}
+    for i, (preset, tokens) in enumerate(prep["tokens"].items()):
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        params = prep["params"].pop(preset).to(device)
+        state = TS.decode_state_piece(cfg, _serve_state(cfg, tokens.shape[1], 81 + i), mesh,
+                                      preset, device)
+        with sharding.use(mesh, preset):
+            step = TS.make_serve_step(cfg)
+        run = {"step_ms": [], "bytes": [], "logits": []}
+        for t, tok in enumerate(tokens):
+            x = {"token": torch.from_numpy(tok).to(device)}
+
+            def one(x=x):
+                return step(params, state, x)
+            collectives.reset_bytes()
+            t1 = time.perf_counter()
+            traced = t == len(tokens) - 1 and cuda
+            if traced:
+                wall, busy, top, (lg, state), _ = busy_share(one, split_copies=True)
+                run["trace"] = (wall, busy, top)
+            else:
+                lg, state = one()
+            sync()
+            ms = (time.perf_counter() - t1) * 1e3
+            if t == 0:
+                run["first_ms"] = ms
+            elif not traced:
+                run["step_ms"].append(ms)
+            run["bytes"].append(dict(collectives.BYTES))
+            run["logits"].append(lg.cpu().numpy())
+        run["cache"] = {f: state["blocks_0"][f].float().cpu().numpy() for f in "kv"}
+        run["cache_gb"] = sum(t.numel() * t.element_size() for k, leaf in state.items()
+                              if k != "pos" for t in leaf.values()) / 1e9
+        if cuda:
+            run["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+        out["runs"][preset] = run
+        del params, state
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
+
+
+def mesh_serve_checks(ranks: list) -> dict:
+    """The parent's checks of the serve runs: every rank's logits finite;
+    each step's logits, put together from the ranks' ("batch", "vocab")
+    blocks, within ``MESH_SERVE_K`` bf16 roundoffs of rank 0's one-device
+    step, with the same argmax wherever the one-device top two are further
+    apart than twice that; each rank's final k / v pieces of the first
+    layer within the same bound of the one-device cache's slices. Returns
+    the readings a preset."""
+    one = ranks[0]["one"]
+    eps = 2.0 ** -8
+    out = {}
+    for preset, want in one.items():
+        runs = [(r["coord"], r["runs"][preset]) for r in ranks]
+        T = len(want["logits"])
+        B, V = want["logits"][0].shape
+        worst = flips = 0
+        checked = 0
+        for t in range(T):
+            got = np.zeros((B, V), np.float32)
+            for coord, run in runs:
+                blk = run["logits"][t]
+                check(np.isfinite(blk).all(), f"mesh serve {preset}: a non-finite logit")
+                nb, nv = blk.shape
+                i = coord["data"] if nb < B else 0
+                got[i * nb:(i + 1) * nb, coord["model"] * nv:(coord["model"] + 1) * nv] = blk
+            w = want["logits"][t]
+            scale = eps * float(np.abs(w).max())
+            worst = max(worst, float(np.abs(got - w).max()) / scale)
+            top2 = np.sort(w, axis=-1)[:, -2:]
+            clear = (top2[:, 1] - top2[:, 0]) > 2 * MESH_SERVE_K * scale
+            checked += int(clear.sum())
+            flips += int((got.argmax(-1) != w.argmax(-1))[clear].sum())
+        cache = 0.0
+        for coord, run in runs:
+            for f in "kv":
+                full, piece = want["cache"][f], run["cache"][f]
+                Cl, nb = piece.shape[3], piece.shape[1]
+                c0 = (coord["model"] if preset == "decode" else coord["data"]) * Cl
+                i = coord["data"] if nb < full.shape[1] else 0
+                ref = full[:, i * nb:(i + 1) * nb, :, c0:c0 + Cl]
+                cache = max(cache, float(np.abs(piece - ref).max())
+                            / (eps * float(np.abs(full).max())))
+        check(worst <= MESH_SERVE_K and cache <= MESH_SERVE_K and flips == 0,
+              f"mesh serve {preset}: logits {worst:.3f} / cache {cache:.3f} roundoffs from the "
+              f"one-device step (bound {MESH_SERVE_K}), {flips} argmax flips")
+        out[preset] = {"logits_k": worst, "cache_k": cache, "argmax_checked": checked}
+    return out
+
+
+def serve_line(serve, ranks: list, card: str, cards: int = 1) -> str:
+    """The mesh-serve lines, one a preset."""
+    lines = []
+    for preset, rd in serve.items():
+        runs = [r["runs"][preset] for r in ranks]
+        run = runs[0]
+        per = {k: np.mean([b[k] for b in run["bytes"]]) / 1e6 for k in run["bytes"][0]}
+        trace = ""
+        if "trace" in run:
+            wall = run["trace"][0]
+            busy = sum(r["trace"][1] for r in runs)
+            trace = (f"; {'the card' if cards == 1 else 'a card on average'}'s kernels busy "
+                     f"{busy / cards / wall:.3f} of rank 0's traced step ({wall * 1e3:.1f} ms; "
+                     f"rank 0's top: " + "; ".join(f"{k} {v:.2f} ms" for k, v in run["trace"][2])
+                     + ")")
+        peak = [r.get("peak_gb") for r in runs]
+        lines.append(
+            f"end to end mesh serve [{card}]: yi-6b at full width on {ranks[0]['layers']} layers, "
+            f"{preset} on a 2 x 2 mesh of "
+            + ("4 gloo ranks sharing the card" if cards == 1 else f"{cards} NCCL ranks, one a card")
+            + f", {run['logits'][0].shape[0]} lanes a rank, a {MESH_SERVE_CACHE}-slot ring: "
+            f"step ms p50 {np.percentile(run['step_ms'], 50):.2f} p99 "
+            f"{np.percentile(run['step_ms'], 99):.2f} ({len(run['step_ms'])} steps, not the "
+            f"first, {run['first_ms']:.1f}, nor the traced); peak HBM a "
+            f"rank [{', '.join(f'{x:.2f}' for x in peak if x is not None)}] GB, cache "
+            f"{run['cache_gb']:.4f} GB a rank; MB a step a rank into "
+            + ", ".join(f"{k} {v:.4f}" for k, v in per.items())
+            + f"; logits within {rd['logits_k']:.3f} bf16 roundoffs of the one-device step, "
+            f"{rd['argmax_checked']} clear argmaxes equal, cache pieces within "
+            f"{rd['cache_k']:.3f}" + trace)
+    return "\n".join(lines)
 
 
 def _mesh_card_rank(rank: int, world: int, device, **kw) -> dict:
@@ -3921,16 +4169,204 @@ def _mesh_card_rank(rank: int, world: int, device, **kw) -> dict:
     return _mesh_rank(rank, world, f"cuda:{rank}", **kw)
 
 
-def mesh_on_cards(n_layers: int = 32, world: int = 4, steps: int = 6) -> int:
+@torch.no_grad()
+def _plain_decode_attention(w, cfg, x, k, v, pos):
+    """One token's attention of whole weights ``w`` against a whole ring
+    ``k`` / ``v`` (B, G, C, hd), written as the reference writes it: the
+    new K/V at slot ``pos % C``, one f32 product over every slot, a
+    softmax, its weights rounded to the cache's dtype, one f32 product with
+    V. Returns the (B, 1, d) output."""
+    from repro_torch.models.layers import apply_rope
+    B, C = x.shape[0], k.shape[2]
+    H, G, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def proj(wt, n):
+        return (x @ wt).reshape(B, 1, n, hd).transpose(1, 2)
+    at = pos[:, None, None]
+    q = apply_rope(proj(w["wq"], H), at, cfg.rope_theta, w["freqs"])
+    lanes = torch.arange(B, device=x.device)
+    slot = torch.remainder(pos, C).long()
+    k[lanes, :, slot] = apply_rope(proj(w["wk"], G), at, cfg.rope_theta, w["freqs"])[:, :, 0]
+    v[lanes, :, slot] = proj(w["wv"], G)[:, :, 0]
+    q5 = (q / math.sqrt(hd)).to(k.dtype).reshape(B, G, H // G, hd).float()
+    s = torch.matmul(q5, k.float().transpose(-1, -2))
+    valid = torch.arange(C, device=x.device)[None, :] < torch.clamp(pos + 1, max=C)[:, None]
+    p = torch.softmax(torch.where(valid[:, None, None, :], s, -1e30), dim=-1)
+    out = torch.matmul(p.to(v.dtype).float(), v.float()).to(x.dtype)
+    return out.reshape(B, 1, H * hd) @ w["wo"]
+
+
+@torch.no_grad()
+def _decode_32k_attention(rank: int, mesh, cfg, params, state, device) -> float:
+    """The first layer's attention under ``decode`` for ``DECODE_32K_CHECKED``
+    lanes of this rank's piece (a seeded token's normed input; a copy of
+    the cache pieces: 2 x 16,384 slots a rank, read in
+    ``DECODE_CHUNK``-slot chunks and combined over 'model') against
+    ``_plain_decode_attention`` on the whole weights and the whole ring,
+    both gathered over 'model' for these lanes alone. Returns the largest
+    difference in bf16 roundoffs of the plain output's largest
+    magnitude."""
+    from repro_torch.parallel import collectives, sharding
+    n = DECODE_32K_CHECKED
+    attn = params.blocks[0][0].attn
+    gen = torch.Generator(device=device).manual_seed(89)
+    x = torch.randn(n, 1, cfg.d_model, generator=gen, device=device).to(attn.wq.dtype)
+    pos = state["pos"][:n].clone()
+    k, v = (state["blocks_0"][f][0, :n].clone() for f in "kv")
+    with sharding.use(mesh, "decode"):
+        got = attn.decode(x, k, v, pos)[0]
+        tp = collectives.tp_group()
+        heads = {"wq": cfg.n_heads, "wk": cfg.n_kv_heads, "wv": cfg.n_kv_heads}
+        whole = {f: t if t.shape[1] == n * cfg.head_dim else collectives.gather(t, tp, 1)
+                 for f, n in heads.items() for t in [getattr(attn, f).detach()]}
+        whole["wo"] = collectives.gather(attn.wo.detach(), tp, 0)
+        whole["freqs"] = attn.freqs
+        ring = [collectives.gather(state["blocks_0"][f][0, :n], tp, 2) for f in "kv"]
+    want = _plain_decode_attention(whole, attn.cfg, x, *ring, pos)
+    scale = 2.0 ** -8 * float(want.float().abs().max())
+    return float((got.float() - want.float()).abs().max()) / scale
+
+
+@torch.no_grad()
+def _decode_32k(rank: int, mesh, device, n_layers: int) -> dict:
+    """``decode`` at decode_32k's shape (``DECODE_32K``: 128 lanes, a
+    32,768-slot ring; 64 lanes x 16,384 slots a card): yi-6b at its
+    published widths on ``n_layers`` layers (random bf16 weights from seed
+    7, this rank's slices), the cache pieces filled with seeded random bf16
+    on the card and ``pos`` near the ring's end (no 4.2M-token prefill);
+    the first layer's attention held to a plain softmax over the whole
+    ring (``_decode_32k_attention``), then ``DECODE_32K_STEPS`` steps after
+    a first one timed apart, then one traced. Returns each step's ms and
+    bytes into each collective, the weights' and cache's GB a card, the
+    byte bound ((weights + cache) / the card's memory rate), peak HBM, the
+    attention check's roundoffs and the count of non-finite logits."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_state_init, init_params
+    from repro_torch.parallel import collectives, sharding
+    from repro_torch.train import steps as TS
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=n_layers)
+    lanes, C = DECODE_32K
+    cuda = torch.device(device).type == "cuda"
+    model = init_params(cfg, 7, device)
+    params = TS.mesh_serve_params(cfg, mesh, "decode", model, device)
+    del model
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    state = TS.decode_state_piece(cfg, decode_state_init(cfg, lanes, C, device="meta"), mesh,
+                                  "decode", device)
+    gen = torch.Generator(device=device).manual_seed(97 + rank)
+    for leaf in state["blocks_0"].values():
+        for layer in leaf:
+            layer.normal_(generator=gen)
+    steps = DECODE_32K_STEPS
+    state["pos"].fill_(C - steps - 3)
+    attn_k = _decode_32k_attention(rank, mesh, cfg, params, state, device)
+    with sharding.use(mesh, "decode"):
+        step = TS.make_serve_step(cfg)
+    toks = np.random.default_rng(71).integers(1, cfg.vocab_size, (steps + 2, lanes)).astype(
+        np.int32)
+    out = {"step_ms": [], "bytes": [], "bad": 0,
+           "weights_gb": sum(p.numel() * p.element_size() for p in params.parameters()) / 1e9,
+           "cache_gb": sum(t.numel() * t.element_size() for t in state["blocks_0"].values())
+           / 1e9, "layers": n_layers, "attn_k": attn_k}
+    for t in range(steps + 2):
+        x = {"token": torch.from_numpy(toks[t]).to(device)}
+
+        def one(x=x):
+            return step(params, state, x)
+        collectives.reset_bytes()
+        sync()
+        t1 = time.perf_counter()
+        traced = t == steps + 1 and cuda
+        if traced:
+            wall, busy, top, (lg, state) = busy_share(one)
+            out["trace"] = (wall, busy, top)
+        else:
+            lg, state = one()
+        sync()
+        ms = (time.perf_counter() - t1) * 1e3
+        if t == 0:
+            out["first_ms"] = ms
+        elif not traced:
+            out["step_ms"].append(ms)
+        out["bytes"].append(dict(collectives.BYTES))
+        out["bad"] += int((~torch.isfinite(lg)).sum())
+    out["bound_ms"] = (out["weights_gb"] + out["cache_gb"]) * 1e9 / HBM_BYTES_PER_S * 1e3
+    out["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9 if cuda else 0.0
+    return out
+
+
+def _mesh_serve_card_rank(rank: int, world: int, device, n_layers: int) -> dict:
+    """``mesh_on_cards``'s serving part, one rank a card: the small case
+    (yi-6b at full width on ``MESH_LAYERS`` layers, ``decode``, 4 lanes, a
+    ``MESH_SERVE_CACHE``-slot ring, held to rank 0's one-device step), then
+    ``_decode_32k``."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import init_params
+    device = f"cuda:{rank}"
+    _warm_card(device)
+    mesh = make_test_mesh(2, 2, device)
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=MESH_LAYERS)
+    model = init_params(dataclasses.replace(cfg, dtype="float32"), 0, device)
+    prep = _mesh_serve_prepare(rank, mesh, cfg, model, device, (("decode", 4),))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve = _mesh_serve_run(rank, mesh, cfg, prep, device)
+    serve["seconds"] = time.perf_counter() - t0
+    return {"serve": serve, "big": _decode_32k(rank, mesh, device, n_layers)}
+
+
+def decode_32k_line(ranks: list, card: str, cards: int) -> str:
+    big = [r["big"] for r in ranks]
+    b0 = big[0]
+    per = {k: np.mean([b[k] for b in b0["bytes"]]) / 1e6 for k in b0["bytes"][0]}
+    p50 = np.percentile(b0["step_ms"], 50)
+    wall, _, top = b0.get("trace", (1.0, 0.0, []))
+    busy = sum(b.get("trace", (0, 0.0))[1] for b in big)
+    return (f"end to end decode_32k [{card}]: yi-6b at full width on {b0['layers']} layers, "
+            f"decode on {cards} NCCL ranks (2 x 2), one a card, {DECODE_32K[0]} lanes x "
+            f"{DECODE_32K[1]} slots ({DECODE_32K[0] // 2} x {DECODE_32K[1] // 2} a card): step ms "
+            f"[{', '.join(f'{x:.2f}' for x in b0['step_ms'])}] p50 {p50:.2f} (first "
+            f"{b0['first_ms']:.1f}, traced {wall * 1e3:.1f}) against the byte bound {b0['bound_ms']:.2f} ms ((weights "
+            f"{b0['weights_gb']:.3f} + cache {b0['cache_gb']:.3f} GB a card) / "
+            f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), {b0['bound_ms'] / p50:.3f} of it; peak HBM "
+            f"[{', '.join(f'{b['peak_gb']:.2f}' for b in big)}] GB; MB a step a rank into "
+            + ", ".join(f"{k} {v:.4f}" for k, v in per.items())
+            + f"; kernels busy {busy / cards / wall:.3f} of rank 0's traced step "
+            f"({wall * 1e3:.1f} ms; rank 0's top: "
+            + "; ".join(f"{k} {v:.2f} ms" for k, v in top)
+            + f"); non-finite logits {sum(b['bad'] for b in big)}; the first layer's attention "
+            f"of {DECODE_32K_CHECKED} lanes a rank within "
+            f"{max(b['attn_k'] for b in big):.3f} bf16 roundoffs of a plain f32 softmax over the "
+            f"whole ring")
+
+
+def mesh_on_cards(n_layers: int = 32, world: int = 4, steps: int = 6,
+                  parts=("train", "serve")) -> int:
     """The mesh phase's rank function one rank a card over NCCL, on a
     machine with ``world`` cards, at yi-6b's published widths on
     ``n_layers`` layers (its full depth by default), ``steps`` steps of
     seeded random batches of 4 x 256 tokens (the last traced) under each
     preset of ``MESH_RUNS``, each rank warmed first. There is no one-device run to hold
     the losses and masters to (32 layers do not fit one card); every other
-    check of ``mesh_checks`` is made. Prints every card's line, the mesh
-    line and the checks' line. Run it as
-    ``python3 -c 'import sys, chip_smoke; sys.exit(chip_smoke.mesh_on_cards())'``."""
+    check of ``mesh_checks`` is made. Then (``"serve"`` in ``parts``) the
+    serving part (``_mesh_serve_card_rank``): the small ``decode`` case
+    held to rank 0's one-device step, and ``decode`` at decode_32k's shape
+    on ``n_layers`` layers, its first layer's attention held to a plain
+    softmax over the whole ring and ``DECODE_32K_STEPS`` steps against its
+    byte bound.
+    Prints every card's line, the mesh lines and the checks' line. Run it as
+    ``python3 -c 'import sys, chip_smoke; sys.exit(chip_smoke.mesh_on_cards())'``
+    (``mesh_on_cards(parts=("serve",))`` for the serving part alone)."""
     global DEVICE
     if torch.cuda.device_count() < world:
         print(f"chip_smoke: {world} cards needed, {torch.cuda.device_count()} present",
@@ -3954,16 +4390,30 @@ def mesh_on_cards(n_layers: int = 32, world: int = 4, steps: int = 6) -> int:
     commit = str(MESH_DIR / "commit")
     report = {}
     try:
-        ranks = _wait_ranks(_spawn_ranks(_mesh_card_rank, world, "nccl", "cards", device="cuda",
-                                         cfg=cfg, batches=batches, commit_dir=commit),
-                            DHT_TIMEOUT, "the mesh's card ranks")
-        out = mesh_checks(report, card, ranks, None, commit)
+        if "train" in parts:
+            ranks = _wait_ranks(_spawn_ranks(_mesh_card_rank, world, "nccl", "cards",
+                                             device="cuda", cfg=cfg, batches=batches,
+                                             commit_dir=commit, serves=()),
+                                DHT_TIMEOUT, "the mesh's card ranks")
+            log(mesh_line(mesh_checks(report, card, ranks, None, commit), card, cards=world))
+        if "serve" in parts:
+            ranks = _wait_ranks(_spawn_ranks(_mesh_serve_card_rank, world, "nccl", "serve",
+                                             device="cuda", n_layers=n_layers),
+                                DHT_TIMEOUT, "the mesh's serving card ranks")
+            serve = mesh_serve_checks([r["serve"] for r in ranks])
+            log(serve_line(serve, [r["serve"] for r in ranks], card, cards=world))
+            big = [r["big"] for r in ranks]
+            check(sum(b["bad"] for b in big) == 0, "decode_32k: non-finite logits")
+            attn_k = max(b["attn_k"] for b in big)
+            check(attn_k <= MESH_SERVE_K, f"decode_32k: the first layer's attention {attn_k:.3f} "
+                  f"bf16 roundoffs from a plain softmax over the whole ring (bound "
+                  f"{MESH_SERVE_K})")
+            log(decode_32k_line(ranks, card, world))
     except PhaseError as e:
         log(f"FAILED: {e}")
         return 1
     finally:
         shutil.rmtree(MESH_DIR, ignore_errors=True)
-    log(mesh_line(out, card, cards=world))
     return 0
 
 
@@ -3998,6 +4448,9 @@ def mesh_line(mesh, card: str, cards: int = 1) -> str:
             f"into " + ", ".join(f"{k} {v:.3f}" for k, v in per.items()) + trace
             + f"; the run {run['main_s']:.1f}s")
     lines[-1] += f"; init {r0['init_s']:.1f}s; phase {mesh['seconds']:.1f}s"
+    if mesh["serve"]:
+        lines.append(serve_line(mesh["serve"], [r["serve"] for r in mesh["ranks"]], card, cards)
+                     + f"; {r0['serve']['seconds']:.1f}s in rank 0")
     return "\n".join(lines)
 
 

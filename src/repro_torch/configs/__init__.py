@@ -1,11 +1,10 @@
-"""Architecture registry of the port: the 10 assigned archs (``--arch <id>``).
-
-The shape grid's abstract inputs (``repro.configs.shapes``) wait for the
-dry-run slice (ROADMAP Queue 1, entry 15d); ``all_cells`` needs only the
-grid's names and its one applicability rule, kept here."""
+"""Architecture registry of the port: the 10 assigned archs (``--arch <id>``)
+and the shape grid (``shapes``)."""
 from __future__ import annotations
 
 import importlib
+
+from .shapes import SHAPES, ShapeCase, concrete_inputs, input_specs, shape_applicable
 
 _MODULES = {
     "yi-6b": "yi_6b",
@@ -22,26 +21,17 @@ _MODULES = {
 
 ARCH_IDS = tuple(_MODULES)
 
-#: the shape grid's names (train_4k, prefill_32k, decode_32k, long_500k)
-SHAPE_NAMES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
-
 
 def get_config(arch_id: str, reduced: bool = False):
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
     return mod.REDUCED if reduced else mod.CONFIG
 
 
-def shape_applicable(cfg, shape: str) -> bool:
-    """long_500k needs sub-quadratic attention."""
-    if shape == "long_500k":
-        return cfg.sub_quadratic
-    return True
-
-
 def all_cells():
     """Every (arch, shape) cell; inapplicable cells flagged (not dropped)."""
     return [(a, s, shape_applicable(get_config(a), s))
-            for a in ARCH_IDS for s in SHAPE_NAMES]
+            for a in ARCH_IDS for s in SHAPES]
 
 
-__all__ = ["ARCH_IDS", "SHAPE_NAMES", "get_config", "shape_applicable", "all_cells"]
+__all__ = ["SHAPES", "ShapeCase", "input_specs", "concrete_inputs", "shape_applicable",
+           "ARCH_IDS", "get_config", "all_cells"]

@@ -9,7 +9,9 @@ weights cross as the reference's parameter tree of numpy arrays
 (``model_params_from_jax``), and a whole training state (f32 masters, AdamW
 moments and count, step) by the checkpoint's key names
 (``train_state_from_jax``, ``train_state_to_numpy``), or straight into this
-rank's shards on a mesh (``train_state_to_mesh``).
+rank's shards on a mesh (``train_state_to_mesh``). A decode state crosses
+as the reference's tree of numpy arrays, whole or as this rank's piece on
+a mesh (``decode_state_from_numpy``, ``decode_state_to_numpy``).
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from repro_torch.core.baselines import (LevelConfig, LevelState,
 from repro_torch.core.layout import (NP_DTYPES, PLANE_DTYPES, DashConfig,
                                      DashState, make_state)
 from repro_torch.checkpoint.manager import flatten
-from repro_torch.models.transformer import ModelConfig, Transformer
+from repro_torch.models.transformer import ModelConfig, Transformer, decode_state_init
 from repro_torch.optim.adamw import AdamWState, map_tree
 from repro_torch.train.steps import TrainState, master_meta, mesh_layout, take_shard
 
@@ -210,3 +212,43 @@ def train_state_to_mesh(cfg: ModelConfig, tree_np, mesh, rules=None, device=None
                       opt=AdamWState(m=tree(".opt/.m"), v=tree(".opt/.v"),
                                      count=scalar(".opt/.count")),
                       step=scalar(".step"))
+
+
+def decode_state_from_numpy(cfg: ModelConfig, tree_np: dict, device, mesh=None,
+                            rules=None) -> dict:
+    """The port's decode state on ``device`` from the reference's as numpy
+    arrays (``jax.tree.map(np.asarray, state)``: ``blocks_<pi>`` and
+    ``tail_<ti>`` dicts of leaves and ``pos``), each leaf cast to the port's
+    dtype of it (a bf16 leaf may come as bf16 or as its exact f32
+    widening); with ``mesh``, only this rank's piece under ``rules``
+    (default: the active preset; ``train.steps.decode_state_piece``). The
+    tree must be ``cfg``'s, every leaf with its rank."""
+    from repro_torch.models.transformer import decode_state_specs
+    from repro_torch.parallel import sharding
+    from repro_torch.train.steps import decode_state_piece
+
+    def leaf(names, like, a):
+        # a copy: serve_step writes the state in place
+        a = np.array(a, dtype=np.int32 if like.dtype == torch.int32 else np.float32, order="C")
+        if a.ndim != len(names):
+            raise ValueError(f"a leaf of {a.ndim} dims for the axes {names}")
+        return torch.from_numpy(a)
+    dtypes = decode_state_init(cfg, 1, 1, device="meta")
+    if set(tree_np) != set(dtypes):
+        raise ValueError(f"decode state keys {sorted(tree_np)} for {sorted(dtypes)}")
+    full = sharding.tree_map(leaf, decode_state_specs(cfg), dtypes, tree_np)
+    if mesh is not None:
+        return decode_state_piece(cfg, full, mesh, rules, device)
+    return sharding.tree_map(lambda like, t: t.to(device=device, dtype=like.dtype), dtypes, full)
+
+
+def decode_state_to_numpy(state: dict) -> dict:
+    """A decode state (whole, or a rank's piece) as numpy arrays in the
+    reference's tree: bf16 and f16 leaves widened to f32 (exact), the rest
+    in their dtype."""
+    from repro_torch.parallel import sharding
+
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype in (torch.bfloat16, torch.float16) else t).numpy().copy()
+    return sharding.tree_map(leaf, state)

@@ -17,7 +17,9 @@ Conventions:
     this rank's slice over 'model' (its heads, ``mlp`` columns or
     vocabulary rows): the training forms read the whole sequence
     (``tp_in``), compute on the slice, and hand a partial sum back to the
-    residual stream (``tp_out``). The weights' shapes say which.
+    residual stream (``tp_out``). The weights' shapes say which. Decode
+    under the serving presets also reads its piece of the cache and
+    combines the softmax over the pieces (``attention_decode``).
 """
 from __future__ import annotations
 
@@ -30,8 +32,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.parallel.collectives import (all_reduce_, all_reduce_sum, tp_group, tp_in,
-                                              tp_out, tp_slice)
+from repro_torch.parallel.collectives import (all_reduce_, all_reduce_sum, cache_group, gather,
+                                              tp_group, tp_in, tp_out, tp_slice)
 
 
 def truncated_normal_(w: torch.Tensor, scale: float, generator) -> torch.Tensor:
@@ -210,36 +212,113 @@ def attention_train(w, cfg: AttnConfig, x, positions, return_kv: bool = False):
     return out
 
 
-def attention_decode(w, cfg: AttnConfig, x, cache_k, cache_v, cache_len):
-    """One-token decode against a KV cache, written IN PLACE.
+#: cache slots the grouped products read at a time: each chunk is widened
+#: to f32 on its own, so a long cache never has an f32 copy
+DECODE_CHUNK = 4096
 
-    cache_k/v: (B, G, C, hd) — C is the full context for dense layers or the
-    ring window for SWA layers; the new token's K/V go to ring slot
-    ``cache_len % C`` of each lane (the reference's where-write). Returns
-    (out, cache_k, cache_v)."""
+
+def _kv_groups(cache, a: int, n: int, H: int):
+    """(view, r): the kv heads query heads [a, a + n) read, as (B, g, C,
+    hd) with ``r`` query heads a kv head (the heads of one kv head
+    adjacent, as the reference's grouped reshape puts them): whole groups
+    of kv heads, or a part of one group's heads."""
+    rep = H // cache.shape[1]
+    if n % rep == 0 and a % rep == 0:
+        return cache[:, a // rep:(a + n) // rep], rep
+    if rep % n == 0 and a // rep == (a + n - 1) // rep:
+        return cache[:, a // rep:a // rep + 1], n
+    raise ValueError(f"query heads [{a}, {a + n}) do not fall on kv head groups of {rep}")
+
+
+def _chunked(fn, C: int, join):
+    """``fn`` of each ``DECODE_CHUNK`` slots of C, joined (one chunk as it
+    is)."""
+    parts = [fn(slice(c, min(c + DECODE_CHUNK, C))) for c in range(0, C, DECODE_CHUNK)]
+    return parts[0] if len(parts) == 1 else join(parts)
+
+
+def attention_decode(w, cfg: AttnConfig, x, cache_k, cache_v, cache_len):
+    """One-token decode against a KV cache, written IN PLACE. Returns
+    (out, cache_k, cache_v).
+
+    cache_k/v: (B, G, C, hd), the kv heads whole. C is the ring: the full
+    context for dense layers or the window for SWA layers. On a mesh
+    under the serving presets it is this rank's piece of the ring: piece
+    ``index`` of the ``size`` equal pieces its length splits into over
+    ``cache_group()`` (one piece, the whole ring, without it). ``wq`` /
+    ``wo`` hold this rank's query heads over 'model' and ``wk`` / ``wv``
+    its kv heads, or all of them where they do not split with the query
+    heads; whole weights off a mesh.
+
+    * The new token's K/V: gathered over the kv slice, written to ring slot
+      ``cache_len % C`` of each lane (C the whole ring; the reference's
+      where-write) on the rank whose piece holds it, left as they are
+      elsewhere.
+    * The scores: the query heads this rank needs against its piece, bf16
+      inputs and f32 results (the upcast is exact; a bf16 matmul would
+      round its output), ``DECODE_CHUNK`` slots at a time, with the
+      valid-slot mask on the global slot indices (slots < cache_len + 1;
+      every slot once the ring has wrapped): every head (q all-gathered
+      over 'model') where the pieces lie over 'model' (``decode``), this
+      rank's heads where they lie over another axis (``decode_b1``:
+      'data').
+    * The softmax combined over the pieces: the row max and the sum of
+      exponentials all-reduced, each piece's weights normalised by them,
+      rounded to the cache's dtype as the reference rounds its softmax,
+      times its V, and the (B, heads, hd) f32 products summed over the
+      pieces. Only vectors a lane and head move; no cache is gathered.
+    * This rank's heads through the row-parallel ``wo``: a partial sum
+      over 'model' where they are a slice."""
     B = x.shape[0]
     H, G, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    C = cache_k.shape[2]
+    Hl, Gl = w.wq.shape[1] // hd, w.wk.shape[1] // hd
+    tp = tp_group()
+    cg = cache_group()
     pos = cache_len[:, None, None]                      # (B,1,1) true position
-    q = apply_rope(_project(x, w.wq, H, hd), pos, cfg.rope_theta, w.freqs)
-    k = apply_rope(_project(x, w.wk, G, hd), pos, cfg.rope_theta, w.freqs)
-    v = _project(x, w.wv, G, hd)
+    q = apply_rope(_project(x, w.wq, Hl, hd), pos, cfg.rope_theta, w.freqs)
+    k = apply_rope(_project(x, w.wk, Gl, hd), pos, cfg.rope_theta, w.freqs)
+    v = _project(x, w.wv, Gl, hd)
+    if Gl < G:
+        k, v = gather(k, tp, 1), gather(v, tp, 1)
+    Cl = cache_k.shape[2]
+    n, index = (cg.size, cg.index) if cg is not None else (1, 0)
+    C, start = Cl * n, index * Cl
+    local = torch.remainder(cache_len, C).long() - start
+    hit = ((local >= 0) & (local < Cl))[:, None, None]
     lanes = torch.arange(B, device=x.device)
-    slot = torch.remainder(cache_len, C).long()
-    cache_k[lanes, :, slot] = k[:, :, 0]
-    cache_v[lanes, :, slot] = v[:, :, 0]
+    at = torch.clamp(local, 0, Cl - 1)
+    for cache, new in ((cache_k, k), (cache_v, v)):
+        cache[lanes, :, at] = torch.where(hit, new[:, :, 0], cache[lanes, :, at])
 
-    # grouped-query product straight against the cache: bf16 inputs, f32
-    # results (the upcast is exact; a bf16 matmul would round its output)
-    q5 = (q / math.sqrt(hd)).to(cache_k.dtype).reshape(B, G, H // G, hd)
-    s = torch.matmul(q5.float(), cache_k.float().transpose(-1, -2))   # (B,G,rep,C)
-    # valid = slots < cache_len+1 (ring: all slots valid once wrapped)
-    valid = torch.arange(C, device=x.device)[None, :] < torch.clamp(
-        cache_len + 1, max=C)[:, None]
+    h0 = tp_slice(H, Hl)
+    every = Hl < H and cg is not None and "model" in cg.axes
+    if every:
+        q = gather(q, tp, 1)
+    a, nq = (0, H) if every else (h0, Hl)
+    kc, r = _kv_groups(cache_k, a, nq, H)
+    vc, _ = _kv_groups(cache_v, a, nq, H)
+    g = kc.shape[1]
+    q5 = (q / math.sqrt(hd)).to(cache_k.dtype).reshape(B, g, r, hd).float()
+    s = _chunked(lambda c: torch.matmul(q5, kc[:, :, c].float().transpose(-1, -2)), Cl,
+                 lambda parts: torch.cat(parts, dim=-1))                  # (B, g, r, Cl)
+    slots = start + torch.arange(Cl, device=x.device)
+    valid = slots[None, :] < torch.clamp(cache_len + 1, max=C)[:, None]
     s = torch.where(valid[:, None, None, :], s, -1e30)
-    p = torch.softmax(s, dim=-1)
-    out = torch.matmul(p.to(cache_v.dtype).float(), cache_v.float()).to(x.dtype)
-    return out.reshape(B, 1, H * hd) @ w.wo, cache_k, cache_v
+    mx = s.amax(dim=-1)
+    if cg is not None:
+        all_reduce_(mx, cg, op=torch.distributed.ReduceOp.MAX)
+    e = torch.exp(s - mx[..., None])
+    total = e.sum(dim=-1)
+    if cg is not None:
+        all_reduce_(total, cg)
+    p = (e / total[..., None]).to(cache_v.dtype)
+    out = _chunked(lambda c: torch.matmul(p[..., c].float(), vc[:, :, c].float()), Cl, sum)
+    if cg is not None:
+        all_reduce_(out, cg)
+    out = out.to(x.dtype).reshape(B, nq, hd)
+    if every:
+        out = out[:, h0:h0 + Hl]
+    return tp_out(out.reshape(B, 1, Hl * hd) @ w.wo, Hl < H), cache_k, cache_v
 
 
 class Attention(nn.Module):

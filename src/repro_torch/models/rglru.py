@@ -99,12 +99,15 @@ def rglru_train(w, x, return_state: bool = False):
 
 def rglru_decode(w, x, h_prev, conv_tail):
     """One-step decode. x: (B, 1, d); h_prev: (B, d_rnn) f32; conv_tail:
-    (B, W-1, d_rnn). Returns (out, h, conv_tail)."""
+    (B, W-1, d_rnn). Returns (out, h, conv_tail). Under tensor parallelism
+    (the serving presets) ``h_prev`` and ``conv_tail`` are this rank's
+    ``rnn`` channels, as are the new ones, and the output is a partial sum
+    over 'model'."""
     gate = F.gelu(x @ w.w_gate, approximate="tanh")
     u = x @ w.w_x
     u, new_tail = _causal_conv(w.conv_w, u, conv_tail)
     h_seq, h_last = _rg_lru_scan(w, u, h0=h_prev)
-    out = (h_seq * gate) @ w.w_out
+    out = tp_out((h_seq * gate) @ w.w_out, w.w_out.shape[0] < w.d_rnn)
     return out, h_last, new_tail
 
 

@@ -117,8 +117,12 @@ def rwkv6_time_mix(w, x, shift_last=None, wkv_state=None):
 
 def rwkv6_time_mix_decode(w, x, shift_last, wkv_state):
     """The O(1) recurrence for one token. x: (B, 1, d). Returns (out,
-    (x, new wkv state))."""
-    B, _, d = x.shape
+    (x, new wkv state)). Under tensor parallelism (the serving presets)
+    the state is this rank's heads (``w_r`` ... ``w_decay`` columns,
+    ``decay_base``, ``bonus_u``, ``w_o`` rows) and the output a partial
+    sum over 'model'; ``x`` and the shift are whole."""
+    B = x.shape[0]
+    d = w.w_r.shape[1]
     H = d // HEAD_SIZE
     xr = x * w.mix_r.to(x.dtype) + shift_last * (1 - w.mix_r).to(x.dtype)
     xkv = x * w.mix_kv.to(x.dtype) + shift_last * (1 - w.mix_kv).to(x.dtype)
@@ -134,7 +138,7 @@ def rwkv6_time_mix_decode(w, x, shift_last, wkv_state):
     out = torch.matmul(r[..., None, :], wkv_state + u[None, :, :, None] * kv)[..., 0, :]
     new_state = decay[..., None] * wkv_state + kv
     out = out.reshape(B, 1, d).to(x.dtype)
-    return (out * g) @ w.w_o, (x, new_state)
+    return tp_out((out * g) @ w.w_o, d < w.d), (x, new_state)
 
 
 def rwkv6_channel_mix(w, x, shift_last=None):

@@ -27,6 +27,8 @@ attention kinds (C the kind's ring, ``ring_len``), ``h`` (B, d_rnn) f32 and
 and ``wkv`` (B, H, 64, 64) f32 for ``rwkv``; ``state["tail_<ti>"]`` the same
 leaves without the layer axis; ``state["pos"]`` the (B,) int32 position
 counter. ``serve_step`` writes into those tensors in place.
+``decode_state_specs`` names each leaf's logical axes, as the reference
+does, for a mesh's pieces.
 
 Training (``forward_train``, ``loss_fn``) runs each block's ``forward``:
 the same maths as its prefill without the decode state, plus the MoE's aux
@@ -527,12 +529,41 @@ def decode_state_init(cfg: ModelConfig, batch: int, cache_len: int, device=None)
     return state
 
 
+def _block_state_specs(kind: str) -> dict:
+    if kind in ATTENTION_KINDS:
+        return {"k": ("batch", "kv_heads", "cache", "head_dim"),
+                "v": ("batch", "kv_heads", "cache", "head_dim")}
+    if kind == "rglru":
+        return {"h": ("batch", "rnn"), "conv": ("batch", None, "rnn")}
+    if kind == "rwkv":
+        return {"shift_tm": ("batch", None, "act_embed"),
+                "wkv": ("batch", "heads", None, None),
+                "shift_cm": ("batch", None, "act_embed")}
+    raise ValueError(kind)
+
+
+def decode_state_specs(cfg: ModelConfig) -> dict:
+    """The logical-axis spec tree of ``decode_state_init``'s state (the
+    reference's): ``blocks_<pi>`` leaves led by ``"layers"``."""
+    specs = {f"blocks_{pi}": {f: ("layers",) + t for f, t in _block_state_specs(kind).items()}
+             for pi, kind in enumerate(cfg.pattern)}
+    specs.update({f"tail_{ti}": _block_state_specs(kind) for ti, kind in enumerate(cfg.tail)})
+    specs["pos"] = ("batch",)
+    return specs
+
+
 @torch.no_grad()
 def serve_step(params: Transformer, cfg: ModelConfig, state, inputs):
     """One decode step: a token (or, for audio, a (B, 1, d) frame embedding)
     per lane in, f32 logits (B, vocab) and the state out. The tensors of
     ``state`` are updated in place and carried into the returned state;
-    ``pos`` is a new tensor, one higher."""
+    ``pos`` is a new tensor, one higher.
+
+    On a mesh (``train.steps.make_mesh_serve_step``) ``params`` holds this
+    rank's weight slices, ``state`` its piece of the decode state (its
+    lanes; its piece of each ring; its ``rnn`` channels and RWKV heads)
+    and ``inputs`` its lanes; the embedding and the lm head are vocabulary
+    slices, so the logits are this rank's ``("batch", "vocab")`` block."""
     if cfg.family == "audio":
         x = inputs["frame_embeds"].to(cfg.compute_dtype)
     else:

@@ -10,7 +10,7 @@ made by the group's backend (``staged``), so a NCCL group keeps its
 tensors on the card. A collective over one rank is the identity and touches no group.
 
 Tensor and sequence parallelism over 'model' (``tp_in``, ``tp_out``,
-``seq_shard``): every rank's backward starts from its own share of the
+``seq_shard``; a decode cache's pieces over ``cache_group``): every rank's backward starts from its own share of the
 loss, so each collective's gradient is its transpose (all-gather <->
 reduce-scatter, all-reduce <-> all-reduce) and the gradient a rank leaves
 on a replicated tensor is its share of the sum over the replicas.
@@ -334,6 +334,21 @@ def tp_group():
     if mesh is None or mesh_shape(mesh).get("model", 1) == 1:
         return None
     return group_for(mesh, ("model",))
+
+
+def cache_group():
+    """This rank's group over the mesh axes the active rules give the
+    decode cache's length (``"cache"``: 'model' under ``decode``, 'data'
+    under ``decode_b1``), or None (no mesh, no such axis, or one rank on
+    it). A cache piece is the ring's ``index``-th of ``size`` equal
+    pieces."""
+    mesh = shd.active_mesh()
+    if mesh is None:
+        return None
+    axes = shd.axes_for("cache")
+    if not axes or math.prod(mesh_shape(mesh)[a] for a in axes) == 1:
+        return None
+    return group_for(mesh, axes)
 
 
 def tp_slice(full: int, local: int) -> int:

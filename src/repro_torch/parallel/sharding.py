@@ -12,8 +12,11 @@ flag for flag (see its docstring for why each exists):
     ``moe_apply_shardmap`` (``_moe_shardmap``);
   * ``train_dp_ep``: ZeRO-3 over 'data', experts owned by 'model' ranks;
     MoE through ``moe_apply_ep_shardmap`` (``_moe_ep``);
-  * ``decode``, ``decode_b1``: serving (dense MoE, ``_moe_dense``); they
-    do not run on a mesh in the port yet.
+  * ``decode``, ``decode_b1``: serving (dense MoE, ``_moe_dense``): the
+    KV cache's length over 'model' (``decode``; kv heads replicated, the
+    batch over 'data') or over 'data' (``decode_b1``: one sequence, the
+    batch whole), the projections' heads, ``mlp``, ``rnn`` and the
+    vocabulary over 'model'.
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` with
 ``mesh_dim_names``; anything with ``mesh_dim_names`` and ``shape`` (and
@@ -23,9 +26,10 @@ or a tuple of axis names — the entries of the reference's
 ``PartitionSpec``.
 
 The active (mesh, rules) pair is process-global, installed by the caller
-(``use``). Every preset but the two serving ones runs a train step on a
-mesh (``MESH_PRESETS``); ``logical_constraint`` says what the port does
-at each of the reference's constraint points. ``tree_shardings`` maps
+(``use``). Every preset runs a train step and a prefill on a mesh, the
+two serving ones (``SERVE_PRESETS``) a serve step too;
+``logical_constraint`` says what the port does at each of the
+reference's constraint points. ``tree_shardings`` maps
 full leaves to this rank's local shards (``Placement``), the slice JAX's
 ``addressable_shards`` gives the device at the same mesh coordinate.
 """
@@ -69,11 +73,9 @@ _PRESETS = {
     "train_multi_moe": _mk(seq="model", embed="data", _moe_dense=True),
 }
 
-#: the presets the port executes on a mesh (a train step; ``train`` and
-#: ``prefill_moe`` a prefill too); ``decode`` and ``decode_b1`` resolve
-#: specs only
-MESH_PRESETS = ("train", "train_tp", "train_tp_nosp", "train_ep", "train_dp", "train_dp_ep",
-                "prefill_moe", "train_multi_moe")
+#: the presets a serve step runs under on a mesh (the reference's dry run
+#: lowers its serve step under these alone)
+SERVE_PRESETS = ("decode", "decode_b1")
 
 _ACTIVE = {"mesh": None, "rules": _PRESETS["train"], "name": "train"}
 
@@ -230,7 +232,12 @@ def logical_constraint(x, names):
       (``train_tp_nosp``); a complete output cut to this rank's piece;
     * the logits ``("batch", "seq", "vocab")``: the sequence piece with the
       whole vocabulary under sequence parallelism ('model' is used by
-      ``seq``), the vocabulary's slice over the whole sequence without.
+      ``seq``), the vocabulary's slice over the whole sequence without;
+    * the decode cache ``("batch", "kv_heads", "cache", "head_dim")``
+      under the serving presets: each rank keeps its piece of the ring
+      (``models/layers.py`` ``attention_decode``: the new token's K/V
+      written only where its slot lies, the softmax combined over the
+      cache's axes), never gathered.
 
     Under the ZeRO-3 presets every activation is local to its rank and
     nothing moves."""

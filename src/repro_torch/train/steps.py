@@ -21,14 +21,18 @@ full width the state costs about 16 bytes a parameter on the card: f32
 masters, ``m`` and ``v`` (12), and the bf16 working weights and their
 gradients (4).
 
-On a mesh (``make_mesh_train_step``: every preset in
-``sharding.MESH_PRESETS``) a rank holds only its shards of the masters,
+On a mesh (``make_mesh_train_step``: every preset of
+``sharding.presets()``) a rank holds only its shards of the masters,
 ``m`` and ``v`` (each leaf's placement from ``param_specs`` and the
 rules), and the working model is gathered from them each step: 12 bytes a
 parameter divided by the ranks, plus the working weights and gradients,
 whole under ZeRO-3 (``train_dp``, ``train_dp_ep``) and this rank's slice
 over 'model' where the TP + SP presets keep a dim sharded at use
 (``use_keep``).
+
+A serve step on a mesh (``make_mesh_serve_step``, the serving presets)
+holds this rank's bf16 weight slices once (``mesh_serve_params``) and its
+piece of the decode state from step to step (``decode_state_piece``).
 """
 from __future__ import annotations
 
@@ -43,7 +47,8 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import vocab_parallel_lse
 from repro_torch.models.moe import mesh_variant
-from repro_torch.models.transformer import (ModelConfig, Transformer, forward_train, loss_fn,
+from repro_torch.models.transformer import (ModelConfig, Transformer, decode_state_init,
+                                            decode_state_specs, forward_train, loss_fn,
                                             param_specs, serve_step)
 from repro_torch.optim import adamw
 from repro_torch.optim.schedule import cosine_warmup
@@ -216,8 +221,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig = adamw.AdamWCo
 
     Under a mesh (``sharding.use(mesh, rules)`` when the step is made) the
     step is ``make_mesh_train_step``'s: the state holds this rank's shards
-    and the batch is the global one. Every train preset runs there; the
-    serving presets (``decode``, ``decode_b1``) raise."""
+    and the batch is the global one. Every preset runs there (``decode``
+    trains as ``train_tp_nosp`` does: its cache rule has nothing to
+    place)."""
     mesh = sharding.active_mesh()
     if mesh is not None:
         return make_mesh_train_step(cfg, mesh, sharding.active_rules_name(), opt_cfg, peak_lr)
@@ -255,7 +261,12 @@ def make_prefill_step(cfg: ModelConfig):
 
 
 def make_serve_step(cfg: ModelConfig):
-    """One decode token against the KV cache / recurrent state."""
+    """One decode token against the KV cache / recurrent state. Under a
+    mesh (``sharding.use(mesh, rules)`` when the step is made) the step is
+    ``make_mesh_serve_step``'s."""
+    mesh = sharding.active_mesh()
+    if mesh is not None:
+        return make_mesh_serve_step(cfg, mesh, sharding.active_rules_name())
 
     def step(params: Transformer, state, inputs):
         return serve_step(params, cfg, state, inputs)
@@ -556,10 +567,9 @@ def _row_group(mesh, batch: dict):
 
 
 def _check_preset(rules) -> None:
-    if rules not in sharding.MESH_PRESETS:
-        raise ValueError(f"preset {rules!r} does not run on a mesh in the port (only "
-                         f"{', '.join(sharding.MESH_PRESETS)}: the serving presets "
-                         f"are a later slice)")
+    if rules not in sharding.presets():
+        raise ValueError(f"preset {rules!r} is not a preset (the presets: "
+                         f"{', '.join(sharding.presets())})")
 
 
 def make_mesh_prefill_step(cfg: ModelConfig, mesh, rules: str):
@@ -594,7 +604,7 @@ def make_mesh_train_step(cfg: ModelConfig, mesh, rules: str,
                          opt_cfg: adamw.AdamWConfig = adamw.AdamWConfig(),
                          peak_lr: float = 3e-4):
     """The train step on ``mesh`` under ``rules`` (any of
-    ``sharding.MESH_PRESETS``): (state of this rank's shards, the global
+    ``sharding.presets()``): (state of this rank's shards, the global
     batch) -> (state, metrics), updated in place, every rank calling it
     together.
 
@@ -609,8 +619,8 @@ def make_mesh_train_step(cfg: ModelConfig, mesh, rules: str,
     those it is replicated on, takes the global norm over every rank and
     runs AdamW on the local shards. The metrics (loss, ce, aux, lr,
     grad_norm) are the global ones, the same on every rank.
-    ``step.held["grads"]`` keeps the last step's gradient shards. The
-    serving presets raise."""
+    ``step.held["grads"]`` keeps the last step's gradient shards. A name
+    that is not a preset raises."""
     _check_preset(rules)
     with sharding.use(mesh, rules):
         layout = mesh_layout(cfg, mesh)
@@ -641,4 +651,124 @@ def make_mesh_train_step(cfg: ModelConfig, mesh, rules: str,
 
     step.held = held
     step.layout = layout
+    return step
+
+
+# ---------------------------------------------------------------------------
+# serving on a mesh: decode (the cache's length over 'model'), decode_b1 (over
+# 'data')
+# ---------------------------------------------------------------------------
+
+def mesh_serve_params(cfg: ModelConfig, mesh, rules: str, source, device=None) -> Transformer:
+    """This rank's serving weights on ``mesh`` under ``rules``: a
+    ``Transformer`` in ``cfg``'s dtype (its f32 leaves f32) whose weights
+    are whole but for the dims the rules keep sharded over 'model' at use
+    (``use_keep``: the query heads, kv heads that split with them, ``mlp``,
+    ``rnn``, RWKV's heads, the embedding's and the lm head's vocabulary),
+    each held once. ``source`` is a whole ``Transformer`` in any dtype
+    (sliced here, no collective), or this rank's shards of the f32 master
+    tree under the same rules (``TrainState.params`` on the mesh; each
+    leaf gathered over the axes it is not kept on, collectively); either is
+    rounded to the weight's dtype (nearest even). ``device``: the rank's
+    card unless named."""
+    from repro_torch.launch.mesh import rank_device
+    from repro_torch.models.layers import Attention, rope_frequencies
+    device = rank_device(device)
+    with sharding.use(mesh, rules):
+        layout = mesh_layout(cfg, mesh)
+        flat = {path: (pl, use_keep(cfg, path, pl, mesh)) for path, pl in layout_leaves(layout)}
+    model = Transformer(cfg, "meta")
+    whole = isinstance(source, Transformer)
+    full = {(path, index): p for path, index, p in param_paths(source)} if whole else None
+    work: dict = {}
+    names = [name for name, _ in model.named_parameters()]
+    with torch.no_grad():
+        for name, (path, index, p) in zip(names, param_paths(model)):
+            pl, keep = flat[path]
+            if whole:
+                t = full[(path, index)].detach()
+                lead = 0 if index is None else 1
+                for d in keep:
+                    t = t.narrow(d - lead, *pl.slices[d])
+                t = torch.empty(t.shape, dtype=p.dtype, device=device).copy_(t)
+            else:
+                if path not in work:
+                    shard = _at(source, path)
+                    g = gather_leaf(shard.to(p.dtype), pl, mesh, keep)
+                    work[path] = g.clone() if g.data_ptr() == shard.data_ptr() else g
+                t = work[path] if index is None else work[path][index]
+            owner, _, leaf = name.rpartition(".")
+            setattr(model.get_submodule(owner), leaf, torch.nn.Parameter(t, requires_grad=False))
+    for m in model.modules():
+        if isinstance(m, Attention):
+            m.freqs = torch.from_numpy(rope_frequencies(m.cfg.head_dim, m.cfg.rope_theta)).to(
+                device)
+    return model
+
+
+def decode_layout(cfg: ModelConfig, state, mesh=None, rules=None) -> dict:
+    """This rank's ``Placement`` of every leaf of a decode state on ``mesh``
+    under ``rules`` (default: the active pair) from ``decode_state_specs``,
+    with the reference's divisibility fall-backs (a batch that does not
+    split over the batch axes is whole on every rank). ``state`` is the
+    whole state, or anything with its leaves' shapes (its twin on the meta
+    device: ``decode_state_init(cfg, B, C, device="meta")``). A ring must
+    split into equal pieces over the axes the rules give the cache, as
+    ``attention_decode`` reads the ring's length off its piece: one that does
+    not raises."""
+    mesh = mesh or sharding.active_mesh()
+    with sharding.use(mesh, rules or sharding.active_rules_name()):
+        layout = sharding.tree_shardings(decode_state_specs(cfg), mesh, shape_tree=state)
+        want = sharding.spec_for(("cache",))[0]
+    for path, pl in layout_leaves(layout):
+        if path[-1] in ("k", "v") and pl.spec[-2] != want:
+            raise ValueError(f"{'/'.join(path)}: a ring of {pl.shape[-2]} slots does not split "
+                             f"over {want}")
+    return layout
+
+
+def decode_state_piece(cfg: ModelConfig, state, mesh, rules=None, device=None) -> dict:
+    """This rank's piece of a decode state on ``mesh`` under ``rules``
+    (default: the active preset): a copy of its slice of each leaf of the
+    whole ``state`` (tensors, cast to the port's dtype of the leaf), or
+    zeros where ``state``'s leaves are on the meta device
+    (``decode_state_init(..., device="meta")``: no whole state is ever
+    made). ``device``: the rank's card unless named."""
+    from repro_torch.launch.mesh import rank_device
+    device = rank_device(device)
+    layout = decode_layout(cfg, state, mesh, rules)
+    dtypes = decode_state_init(cfg, 1, 1, device="meta")
+
+    def piece(pl, like, full):
+        out = torch.zeros(pl.local_shape, dtype=like.dtype, device=device)
+        return out if full.device.type == "meta" else out.copy_(pl.take(full))
+    return sharding.tree_map(piece, layout, dtypes, state)
+
+
+def make_mesh_serve_step(cfg: ModelConfig, mesh, rules: str):
+    """The serve step on ``mesh`` under ``rules`` (``decode`` or
+    ``decode_b1``, ``sharding.SERVE_PRESETS``): (this rank's serving
+    weights, ``mesh_serve_params``; its piece of the decode state,
+    ``decode_state_piece``; the GLOBAL inputs, a token a lane or an audio
+    model's (B, 1, d) frame embeddings) -> (this rank's block of the f32
+    logits, the reference's ``("batch", "vocab")`` block: its lanes (the
+    batch split over the batch axes, whole under ``decode_b1``) by its
+    vocabulary slice over 'model'; the state, its pieces updated in place
+    and ``pos`` one higher), every rank calling it together.
+
+    No rank holds the whole KV cache and none is gathered: each attention
+    layer writes the new token only on the rank whose piece holds its slot
+    and combines the softmax over the pieces (``models/layers.py``
+    ``attention_decode``); the bytes a step hands to collectives do not grow
+    with the cache's length."""
+    if rules not in sharding.SERVE_PRESETS:
+        raise ValueError(f"preset {rules!r} does not serve on a mesh (only "
+                         f"{', '.join(sharding.SERVE_PRESETS)}, the presets the reference's dry "
+                         f"run lowers its serve step under)")
+
+    @torch.no_grad()
+    def step(params: Transformer, state, inputs):
+        with sharding.use(mesh, rules):
+            return serve_step(params, cfg, state, local_rows(inputs, _row_group(mesh, inputs)))
+
     return step

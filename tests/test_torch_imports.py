@@ -35,7 +35,7 @@ def test_port_files_found():
             "layers.py", "kv_cache.py", "serve.py", "serve_prefix_cache_torch.py",
             "moe.py", "rglru.py", "rwkv6.py", "adamw.py", "schedule.py", "steps.py",
             "trainer.py", "manager.py", "train.py", "train_lm_torch.py", "sharding.py",
-            "collectives.py", "compression.py", "mesh.py", "elastic.py"} <= names
+            "collectives.py", "compression.py", "mesh.py", "elastic.py", "shapes.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

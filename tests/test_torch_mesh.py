@@ -396,16 +396,12 @@ def test_mesh_train_steps(runs, arch):
 
 
 def test_other_presets_and_meshes_refused(runs):
-    """Under a mesh the serving presets, decode and decode_b1, raise, naming
-    themselves; the production mesh refuses a world of 4; a mesh made
-    without ``device`` refuses a machine without a card."""
-    from repro_torch.parallel import sharding
+    """Every preset trains on a mesh, and a name that is not a preset
+    raises, naming itself; the production mesh refuses a world of 4; a mesh
+    made without ``device`` refuses a machine without a card."""
     _, port, _ = runs
-    others = set(sharding.presets()) - set(sharding.MESH_PRESETS)
-    assert others == {"decode", "decode_b1"}
     for r in port:
-        for preset in others:
-            assert f"preset '{preset}'" in r[f"refused_{preset}"]
+        assert "preset 'no_such_preset' is not a preset" in r["refused_no_such_preset"]
         assert "needs 256 ranks; the world has 4" in r["refused_production"]
         if not torch.cuda.is_available():
             assert "no CUDA device" in r["refused_no_card"]

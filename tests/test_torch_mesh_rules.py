@@ -1,6 +1,7 @@
 """Port parity of the mesh layer's pure functions, in process (no ranks):
 ``repro_torch.parallel.sharding`` (presets, spec resolution, flags),
-``models.transformer.param_specs``, ``parallel.compression``'s quantizer,
+``models.transformer.param_specs`` and ``decode_state_specs``,
+``parallel.compression``'s quantizer,
 error feedback and ``wire_bytes``, and ``launch.elastic.rescale_batch_plan``
 against the reference's own functions. Meshes are duck objects: the
 reference's ``_resolve`` reads ``axis_names`` and ``devices.shape``, the
@@ -22,14 +23,16 @@ import torch
 
 from repro.configs import ARCH_IDS
 from repro.configs import get_config as ref_config
+from repro.configs import input_specs as ref_input_specs
 from repro.launch import elastic as R_el
 from repro.models.transformer import abstract_params
+from repro.models.transformer import decode_state_specs as ref_decode_state_specs
 from repro.models.transformer import param_specs as ref_param_specs
 from repro.parallel import compression as RC
 from repro.parallel import sharding as RS
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, input_specs
 from repro_torch.launch import elastic as P_el
-from repro_torch.models.transformer import param_specs
+from repro_torch.models.transformer import decode_state_specs, param_specs
 from repro_torch.parallel import compression as PC
 from repro_torch.parallel import sharding as PS
 from repro_torch.train.steps import master_meta
@@ -54,7 +57,6 @@ def _abstract(arch):
 def test_presets_equal_reference():
     """Every preset's dict, axis rules and ``_moe_*`` flags alike."""
     assert PS.presets() == RS.presets()
-    assert set(PS.MESH_PRESETS) <= set(PS.presets())
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
@@ -89,6 +91,27 @@ def test_tree_specs_equal_reference(preset, mesh):
                         (("batch", None), (255, 7)), (("batch",), None)):
         want = tuple(RS.spec_for(names, rules, rmesh, dims))
         assert PS.spec_for(names, PS.presets()[preset], pmesh, dims) == want
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("preset", ("decode", "decode_b1"))
+def test_decode_state_specs_equal_reference(preset, mesh):
+    """``decode_state_specs`` of every arch equals the reference's, and its
+    ``tree_specs`` over the decode shapes' states (decode_32k's 128 lanes
+    and long_500k's one, a KV cache of each length) under the serving
+    presets, with the divisibility fall-backs, entry for entry."""
+    rmesh, pmesh = _meshes(mesh)
+    rules = RS.presets()[preset]
+    for arch in ARCH_IDS:
+        specs = decode_state_specs(get_config(arch))
+        assert specs == ref_decode_state_specs(ref_config(arch))
+        for shape in ("decode_32k", "long_500k"):
+            state = ref_input_specs(ref_config(arch), shape)["state"]
+            want = jax.tree.map(tuple, RS.tree_specs(specs, rules, rmesh, state),
+                                is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+            got = PS.tree_specs(specs, PS.presets()[preset], pmesh,
+                                input_specs(get_config(arch), shape)["state"])
+            assert got == want, (arch, shape)
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))

@@ -11,7 +11,15 @@ within one bf16 roundoff, the masters within 2.1 x the steps' summed
 learning rates), ``m``, ``v`` and the grad norm at ``STEP_K``, against both
 the reference's sharded step and the port's one-device step; the
 prefill's logits within ``LOGITS_K`` roundoffs of the reference's largest.
-The ``slow`` sweep runs every other (arch, preset) pair.
+
+Serving (``decode``, ``decode_b1``): the reference's subprocess first runs
+each case's one-device prefill (``serve_prefill.pkl``, which the ranks and
+this module wait for), later the reference's serve step jitted with the dry
+run's shardings; each rank's logits block a step within ``LOGITS_K`` (or
+``SERVE_LOGITS_K``) roundoffs and its state piece within ``STATE_K`` of
+both it and the port's one-device serve step.
+The ``slow`` sweep runs every other (arch, preset) pair, and every arch
+under both serving presets.
 """
 import os
 import pickle
@@ -25,6 +33,7 @@ import pytest
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.train import steps as TS
 from tests.test_torch_mesh import _batch as _token_batch
 from tests.test_torch_mesh import _one_device, _state
 from tests.test_torch_optim import BF16_STEP_K
@@ -66,8 +75,40 @@ STEP_K = {"yi-6b": BF16_STEP_K["yi-6b"] + (2.0 ** -11,),
           "phi3.5-moe-42b-a6.6b": (96.0, 80.0, 2.0 ** -10)}
 #: the prefill's logits within this many roundoffs of the dtype of the
 #: reference's largest logit (readings: yi-6b 2.07 in bf16, mixtral-8x7b
-#: 8.9 in f32)
+#: 8.9 in f32); the serving cases' logits a step too
 LOGITS_K = {"bfloat16": 4.0, "float32": 64.0}
+#: (arch, preset, dtype) of the serve steps held here: 4 lanes (2 a data
+#: rank) under decode, 1 under decode_b1; mixtral in f32, where no
+#: near-tied top-2 route flips
+SERVES = (("yi-6b", "decode", "bfloat16"), ("yi-6b", "decode_b1", "bfloat16"),
+          ("h2o-danube-3-4b", "decode", "bfloat16"), ("recurrentgemma-9b", "decode", "bfloat16"),
+          ("rwkv6-7b", "decode", "bfloat16"), ("mixtral-8x7b", "decode", "float32"))
+#: a serving case's config overrides: h2o-danube-3-4b's SWA ring cut to 32
+#: slots, so that the steps from position 30 wrap it (its reduced window,
+#: 64, equals the cache)
+SERVE_OVER = {"h2o-danube-3-4b": {"sliding_window": 32}}
+#: the cache length, the one-device prefill's prompt and the decode steps
+#: after it: from position 30 the writes cross from the first 'model'
+#: rank's piece of a 64-slot ring to the second's
+CACHE_LEN, PROMPT, SERVE_STEPS = 64, 30, 4
+#: the decode products' chunk (``models/layers.py`` ``DECODE_CHUNK``) in the
+#: serving cases, mesh and one-device alike: a 32-slot piece reads chunks of
+#: 12, 12 and 8 slots, a 16-slot SWA piece 12 and 4, the one-device 64-slot
+#: ring six chunks, so that the joined scores and the summed products
+#: across chunks are held as well as a single chunk's
+DECODE_CHUNK = 12
+#: a serving case's logits a step within ``LOGITS_K`` roundoffs, but for
+#: the recurrent archs, whose bf16 noise is larger: recurrentgemma-9b reads
+#: 3.78, rwkv6-7b 4.87 (the reference's own sharded step reads 2.80 / 4.29
+#: against its one-device step, and the two packages' one-device steps
+#: 3.33 / 5.51 against each other; ``python tests/test_torch_mesh_tp.py
+#: serve reference`` prints them)
+SERVE_LOGITS_K = {"recurrentgemma-9b": 6.0, "rwkv6-7b": 8.0}
+#: the final state pieces within this many roundoffs of the model's dtype
+#: of each leaf's largest magnitude, against both the reference's sharded
+#: step and the port's one-device step (readings: at most 3.86 in bf16,
+#: rwkv6-7b's; 8.24 in f32, mixtral-8x7b's)
+STATE_K = {"bfloat16": 8.0, "float32": 32.0}
 
 REFERENCE = textwrap.dedent("""
     import dataclasses, pickle, sys
@@ -78,9 +119,11 @@ REFERENCE = textwrap.dedent("""
     from repro.checkpoint.manager import _flatten
     from repro.configs import get_config
     from repro.models import param_specs
+    from repro.models.transformer import decode_state_specs, forward_prefill
     from repro.optim import adamw
     from repro.parallel import sharding
-    from repro.train.steps import TrainState, make_prefill_step, make_train_step
+    from repro.train.steps import (TrainState, make_prefill_step, make_serve_step,
+                                   make_train_step)
 
     d = Path(sys.argv[1])
     inp = pickle.loads((d / "inputs.pkl").read_bytes())
@@ -99,6 +142,23 @@ REFERENCE = textwrap.dedent("""
     def batch_sh(b):
         return {k: NamedSharding(mesh, sharding.spec_for(("batch",) + (None,) * (v.ndim - 1),
                                                          dims=v.shape)) for k, v in b.items()}
+
+    def to_np(st):
+        return jax.tree.map(lambda a: np.asarray(a, np.float32) if a.dtype == jnp.bfloat16
+                            else np.asarray(a), st)
+
+    # the serving cases' one-device prefill first: the port's ranks wait for it
+    prefilled, states = {}, {}
+    for arch, preset, dtype in inp["serves"]:
+        key = f"{arch}_{preset}_{dtype}"
+        cfg = dataclasses.replace(config(arch), dtype=dtype, **inp["serve_over"].get(arch, {}))
+        params = tree(inp[f"{arch}_state"], ".params", param_specs(cfg))
+        prompt = {k: jnp.asarray(v) for k, v in inp[f"serve_{key}"]["prompt"].items()}
+        _, st = jax.jit(lambda p, b: forward_prefill(p, cfg, b, inp["cache_len"]))(params, prompt)
+        states[key] = (cfg, params, st)
+        prefilled[key] = to_np(st)
+    (d / "serve_prefill.tmp").write_bytes(pickle.dumps(prefilled))
+    (d / "serve_prefill.tmp").rename(d / "serve_prefill.pkl")
 
     for arch, preset in inp["cases"]:
         cfg = config(arch)
@@ -134,6 +194,26 @@ REFERENCE = textwrap.dedent("""
             f = jax.jit(make_prefill_step(cfg), in_shardings=(p_sh, batch_sh(b)),
                         out_shardings=NamedSharding(mesh, lspec))
             out[f"prefill_{arch}_{preset}"] = (np.asarray(f(params, b)), tuple(lspec))
+
+    # the serve step jitted with the dry run's shardings (dryrun.py:185-204)
+    for arch, preset, dtype in inp["serves"]:
+        key = f"{arch}_{preset}_{dtype}"
+        cfg, params, st = states[key]
+        steps = inp[f"serve_{key}"]["steps"]
+        B = st["pos"].shape[0]
+        with sharding.use(mesh, preset):
+            p_sh = sharding.tree_shardings(param_specs(cfg), mesh, shape_tree=params)
+            s_sh = sharding.tree_shardings(decode_state_specs(cfg), mesh, shape_tree=st)
+            l_sh = NamedSharding(mesh, sharding.spec_for(("batch", "vocab"),
+                                                         dims=(B, cfg.vocab_size)))
+            step = jax.jit(make_serve_step(cfg), in_shardings=(p_sh, s_sh, batch_sh(steps[0])),
+                           out_shardings=(l_sh, s_sh))
+            st = jax.device_put(st, s_sh)
+            logits = []
+            for x in steps:
+                lg, st = step(params, st, {k: jnp.asarray(v) for k, v in x.items()})
+                logits.append(np.asarray(lg))
+        out[f"serve_{key}"] = (logits, to_np(st), tuple(l_sh.spec))
     (d / "ref.pkl").write_bytes(pickle.dumps(out))
 """)
 
@@ -152,17 +232,67 @@ def _batch(rng, cfg):
     return b
 
 
-def _run(d, cases, prefills, steps=2):
+def _serve_inputs(rng, cfg, preset):
+    """A serving case's prompt (``PROMPT`` tokens a lane; a vlm's patch
+    embeddings beside them, an audio model's frame embeddings in their
+    place) and ``SERVE_STEPS`` decode inputs (a token a lane, or a (B, 1,
+    d) frame embedding)."""
+    B = 1 if preset == "decode_b1" else 4
+    if cfg.family == "audio":
+        prompt = {"frame_embeds": rng.normal(0, 1, (B, PROMPT, cfg.d_model)).astype(np.float32)}
+        steps = [{"frame_embeds": rng.normal(0, 1, (B, 1, cfg.d_model)).astype(np.float32)}
+                 for _ in range(SERVE_STEPS)]
+        return {"prompt": prompt, "steps": steps}
+    prompt = {"tokens": rng.integers(1, cfg.vocab_size, (B, PROMPT)).astype(np.int32)}
+    if cfg.family == "vlm":
+        prompt["patch_embeds"] = rng.normal(0, 1, (B, cfg.num_patches, cfg.d_model)).astype(
+            np.float32)
+    steps = [{"token": rng.integers(1, cfg.vocab_size, (B,)).astype(np.int32)}
+             for _ in range(SERVE_STEPS)]
+    return {"prompt": prompt, "steps": steps}
+
+
+def _one_device_serve(inp, arch, preset, dtype):
+    """The port's one-device serve steps from the reference's prefill
+    state: (logits a step, the final state as numpy)."""
+    from repro_torch import interop
+    from repro_torch.models import serve_step
+    from tests.torch_mesh_tp_ranks import decode_chunk, serve_config
+    key = f"{arch}_{preset}_{dtype}"
+    cfg = serve_config(inp, arch, dtype)
+    masters = interop.train_state_from_jax(cfg, inp[f"{arch}_state"], "cpu").params
+    model = interop.model_params_from_jax(cfg, TS.adamw.map_tree(lambda t: t.numpy(), masters),
+                                          "cpu")
+    state = interop.decode_state_from_numpy(cfg, inp["prefilled"][key], "cpu")
+    logits = []
+    with decode_chunk(inp["decode_chunk"]):
+        for x in inp[f"serve_{key}"]["steps"]:
+            lg, state = serve_step(model, cfg, state,
+                                   {k: torch.from_numpy(v) for k, v in x.items()})
+            logits.append(lg.numpy().copy())
+    return logits, interop.decode_state_to_numpy(state)
+
+
+def _run(d, cases, prefills, serves=(), steps=2, train_under=(), bytes_lengths=()):
     """The seeded inputs, then the 4 port ranks beside the reference's
     subprocess, and the port's one-device steps meanwhile: (inputs, port
-    results by rank, reference results, one-device results by arch)."""
+    results by rank, reference results, one-device results by arch and by
+    serving case)."""
+    from tests.torch_mesh_tp_ranks import serve_config, wait_prefill
     rng = np.random.default_rng(11)
-    archs = sorted({c[0] for c in cases + prefills})
-    inp = {"cases": cases, "prefills": prefills, "commit_dir": str(d / "commit")}
-    for arch in archs:
+    inp = {"cases": cases, "prefills": prefills, "serves": serves, "train_under": train_under,
+           "bytes_lengths": bytes_lengths, "serve_over": SERVE_OVER, "cache_len": CACHE_LEN,
+           "decode_chunk": DECODE_CHUNK, "commit_dir": str(d / "commit"), "serve_dir": str(d)}
+    for arch in sorted({c[0] for c in cases + prefills + train_under}):
         inp[f"{arch}_state"] = _state(arch)
         inp[f"{arch}_batches"] = [_batch(rng, get_config(arch, reduced=True))
                                   for _ in range(steps)]
+    for arch in sorted({c[0] for c in serves} | ({"yi-6b"} if bytes_lengths else set())):
+        if f"{arch}_state" not in inp:
+            inp[f"{arch}_state"] = _state(arch)
+    for arch, preset, dtype in serves:
+        inp[f"serve_{arch}_{preset}_{dtype}"] = _serve_inputs(
+            rng, serve_config(inp, arch, dtype), preset)
     (d / "inputs.pkl").write_bytes(pickle.dumps(inp))
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "JAX_PLATFORMS": "cpu",
            "OMP_NUM_THREADS": "1", "XLA_FLAGS": "--xla_force_host_platform_device_count=4"}
@@ -172,6 +302,10 @@ def _run(d, cases, prefills, steps=2):
     try:
         one = {a: _one_device(a, inp[f"{a}_state"], inp[f"{a}_batches"])
                for a in sorted({a for a, _ in cases})}
+        if serves:
+            inp["prefilled"] = wait_prefill(d, lambda: ref.poll() is None)
+        for case in serves:
+            one["serve_{}_{}_{}".format(*case)] = _one_device_serve(inp, *case)
         port = wait()
     finally:
         log, _ = ref.communicate(timeout=900)
@@ -179,9 +313,16 @@ def _run(d, cases, prefills, steps=2):
     return inp, port, pickle.loads((d / "ref.pkl").read_bytes()), one
 
 
+#: the train steps run under a serving preset, held to ``train_tp_nosp``'s
+TRAIN_UNDER = (("yi-6b", "decode"),)
+#: the cache lengths a decode step's collective bytes are compared at
+BYTES_LENGTHS = (64, 128)
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    return _run(tmp_path_factory.mktemp("mesh_tp"), CASES, PREFILLS)
+    return _run(tmp_path_factory.mktemp("mesh_tp"), CASES, PREFILLS, SERVES,
+                train_under=TRAIN_UNDER, bytes_lengths=BYTES_LENGTHS)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -291,11 +432,100 @@ def test_train_sharded_commit_restores(runs):
             assert np.array_equal(np.asarray(lazy[k].get()), v), k
 
 
-def test_only_serving_presets_refused():
-    """Every train preset (and ``prefill_moe``) runs on a mesh; ``decode``
-    and ``decode_b1`` do not."""
+def _serve_errors(runs, arch, preset, dtype):
+    """Each rank's logits blocks and final state piece of a serving case
+    against the reference's sharded step and the port's one-device step:
+    {"ref" / "one": (logits, state) in roundoffs of the model's dtype of
+    the largest magnitude (each step's logits; each state leaf)}. Asserts
+    each block's shape and place (the reference's ``("batch", "vocab")``
+    spec) and ``pos`` exact."""
+    import types
+
+    from repro_torch.models.transformer import decode_state_specs
     from repro_torch.parallel import sharding
-    assert set(sharding.presets()) - set(sharding.MESH_PRESETS) == {"decode", "decode_b1"}
+    from tests.torch_mesh_tp_ranks import serve_config
+    inp, port, ref, one = runs
+    key = f"{arch}_{preset}_{dtype}"
+    want_logits, want_state, lspec = ref[f"serve_{key}"]
+    assert lspec == (("data", "model") if preset == "decode" else (None, "model"))
+    cfg = serve_config(inp, arch, dtype)
+    eps = BF16_EPS if dtype == "bfloat16" else 2.0 ** -24
+    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"), shape=(2, 2))
+    specs = sharding.tree_specs(decode_state_specs(cfg), sharding.presets()[preset], mesh,
+                                want_state)
+    errs = {"ref": [0.0, 0.0], "one": [0.0, 0.0]}
+    for r in port:
+        got_logits, got_state = r[f"serve_{key}"]
+        coord = dict(zip(("data", "model"), r["coord"]))
+        lpl = sharding.placement(lspec, want_logits[0].shape, mesh, coord)
+        for name, (w_logits, w_state) in (("ref", (want_logits, want_state)),
+                                          ("one", one[f"serve_{key}"])):
+            for g, w in zip(got_logits, w_logits, strict=True):
+                w = lpl.take(torch.from_numpy(w)).numpy()
+                assert g.shape == w.shape
+                errs[name][0] = max(errs[name][0], float(np.abs(g - w).max())
+                                    / (eps * float(np.abs(w).max())))
+            for path, spec in TS.layout_leaves(specs):
+                full = TS._at(w_state, path)
+                w = sharding.placement(spec, full.shape, mesh, coord).take(
+                    torch.from_numpy(full)).numpy()
+                g = TS._at(got_state, path)
+                assert g.shape == w.shape and g.dtype == w.dtype, path
+                if path == ("pos",):
+                    assert np.array_equal(g, w)
+                    continue
+                errs[name][1] = max(errs[name][1], float(np.abs(g - w).max())
+                                    / (eps * max(float(np.abs(w).max()), 1e-30)))
+    return errs
+
+
+@pytest.mark.parametrize("arch,preset,dtype", SERVES, ids=[f"{a}-{p}" for a, p, _ in SERVES])
+def test_mesh_serve_matches_reference(runs, arch, preset, dtype):
+    """``SERVE_STEPS`` decode steps on the 2 x 2 mesh after the reference's
+    one-device prefill of ``PROMPT`` tokens (a ``CACHE_LEN``-slot cache):
+    each rank's logits block a step within ``LOGITS_K`` roundoffs
+    (``SERVE_LOGITS_K`` for the recurrent archs), and its
+    final state piece (cache pieces with the written slots, ``h`` /
+    ``conv``, ``wkv``, the shifts) within ``STATE_K`` roundoffs, of both
+    the reference's jitted sharded step and the port's one-device step;
+    ``pos`` exact."""
+    errs = _serve_errors(runs, arch, preset, dtype)
+    for name, (k_logits, k_state) in errs.items():
+        assert k_logits <= SERVE_LOGITS_K.get(arch, LOGITS_K[dtype]), (name, k_logits)
+        assert k_state <= STATE_K[dtype], (name, k_state)
+
+
+def test_mesh_serve_gathers_no_cache(runs):
+    """yi-6b under ``decode`` at cache lengths 64 and 128: each rank's cache
+    piece is half the ring long, and the bytes a step hands each collective
+    are the same at both lengths (no cache, or f32 copy of it, is moved);
+    the serving weights a rank slices from the whole model equal those it
+    gathers from its master shards."""
+    _, port, _, _ = runs
+    a, b = BYTES_LENGTHS
+    for r in port:
+        (steps_a, shape_a), (steps_b, shape_b) = r[f"bytes_{a}"], r[f"bytes_{b}"]
+        assert shape_a[3] == a // 2 and shape_b[3] == b // 2
+        assert steps_a == steps_b
+        assert all(s["all_reduce"] > 0 and s["all_gather"] > 0 for s in steps_a)
+        assert r["serve_weights_equal"]
+
+
+def test_only_serving_presets_refused(runs):
+    """Every preset runs on a mesh: a train step and a prefill under each
+    (yi-6b's steps under ``decode`` equal its ``train_tp_nosp`` steps: the
+    cache rule has nothing to place); a serve step under the serving
+    presets only, the others refused, naming themselves."""
+    from repro_torch.parallel import sharding
+    assert set(sharding.SERVE_PRESETS) == {"decode", "decode_b1"}
+    _, port, _, _ = runs
+    for arch, preset in TRAIN_UNDER:
+        for r in port:
+            assert r[f"train_{arch}_{preset}"] == r[f"train_{arch}_train_tp_nosp"]
+    mesh = type("Mesh", (), {"mesh_dim_names": ("data", "model"), "shape": (2, 2)})()
+    for preset in set(sharding.presets()) - set(sharding.SERVE_PRESETS):
+        with pytest.raises(ValueError, match=f"preset '{preset}' does not serve"):
+            TS.make_mesh_serve_step(get_config("yi-6b", reduced=True), mesh, preset)
 
 
 _FAMILIES = {"dense": "yi-6b", "swa": "h2o-danube-3-4b", "vlm": "llava-next-mistral-7b",
@@ -307,17 +537,28 @@ SWEEP = tuple((a, p) for a in _FAMILIES.values() for p in TP_PRESETS
     if (a, p) not in CASES)
 
 
+#: every other (arch, serving preset, dtype): bf16, MoE archs in f32
+SERVE_SWEEP = tuple((a, p, "float32" if get_config(a, reduced=True).family == "moe"
+                     else "bfloat16") for a in ARCH_IDS for p in ("decode", "decode_b1")
+                    if (a, p) not in {(c[0], c[1]) for c in SERVES})
+
+
 @pytest.mark.slow
 def test_mesh_step_sweep(tmp_path):
     """Every other family under ``train``, ``train_tp`` and
     ``train_tp_nosp`` and phi3.5 under ``train_ep`` and ``train_multi_moe``,
-    held as the cases above."""
+    and every arch under both serving presets, held as the cases above."""
     assert set(ARCH_IDS) >= {a for a, _ in SWEEP}
-    runs = _run(tmp_path, SWEEP, ())
+    runs = _run(tmp_path, SWEEP, (), SERVE_SWEEP)
     failed = []
     for arch, preset in SWEEP:
         try:
             _hold_step(runs, arch, preset)
+        except AssertionError as e:
+            failed.append(f"{arch} {preset}: {e}")
+    for arch, preset, dtype in SERVE_SWEEP:
+        try:
+            test_mesh_serve_matches_reference(runs, arch, preset, dtype)
         except AssertionError as e:
             failed.append(f"{arch} {preset}: {e}")
     assert not failed, "\n".join(failed)
@@ -384,12 +625,70 @@ def _readings(runs, cases, reference=False):
     return lines
 
 
+def _reference_one_device_serve(inp, arch, preset, dtype):
+    """The reference's jitted one-device serve steps from its own prefill
+    state: (logits a step, the final state as numpy, bf16 widened)."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_config as ref_config
+    from repro.models.transformer import decode_state_init, param_specs
+    from repro.train.steps import make_serve_step
+    key = f"{arch}_{preset}_{dtype}"
+    cfg = dataclasses.replace(ref_config(arch, reduced=True), dtype=dtype,
+                              **SERVE_OVER.get(arch, {}))
+    flat = inp[f"{arch}_state"]
+
+    def tree(head, spec):
+        if isinstance(spec, dict):
+            return {k: tree(head + "/" + k, v) for k, v in spec.items()}
+        return jnp.asarray(flat[head])
+    params = tree(".params", param_specs(cfg))
+    pre = inp["prefilled"][key]
+    like = jax.eval_shape(lambda: decode_state_init(cfg, pre["pos"].shape[0], CACHE_LEN))
+    state = jax.tree.map(lambda a, t: jnp.asarray(a, t.dtype), pre, like)
+    step = jax.jit(make_serve_step(cfg))
+    logits = []
+    for x in inp[f"serve_{key}"]["steps"]:
+        lg, state = step(params, state, {k: jnp.asarray(v) for k, v in x.items()})
+        logits.append(np.asarray(lg))
+    return logits, jax.tree.map(lambda a: np.asarray(a, np.float32) if a.dtype == jnp.bfloat16
+                                else np.asarray(a), state)
+
+
+def _whole_errors(got, want, dtype):
+    """(logits, state) of one whole serving run against another's, in the
+    units of ``_serve_errors``."""
+    eps = BF16_EPS if dtype == "bfloat16" else 2.0 ** -24
+    kl = max(float(np.abs(g - w).max()) / (eps * float(np.abs(w).max()))
+             for g, w in zip(got[0], want[0]))
+    ks = max(float(np.abs(g - w).max()) / (eps * max(float(np.abs(w).max()), 1e-30))
+             for (path, g), (_, w) in zip(TS.layout_leaves(got[1]), TS.layout_leaves(want[1]))
+             if path != ("pos",))
+    return kl, ks
+
+
 if __name__ == "__main__":
     # PYTHONPATH=src:. JAX_PLATFORMS=cpu python tests/test_torch_mesh_tp.py [sweep] [reference]
-    # prints the readings the bounds above were set from
+    # [serve] prints the readings the bounds above were set from (with
+    # "serve", the serving cases' in roundoffs: logits, state)
     import tempfile
-    cases = SWEEP if "sweep" in sys.argv[1:] else CASES
     torch.set_num_threads(1)
     with tempfile.TemporaryDirectory() as tmp:
-        print("\n".join(_readings(_run(Path(tmp), cases, ()), cases,
-                                  "reference" in sys.argv[1:])))
+        if "serve" in sys.argv[1:]:
+            serves = SERVE_SWEEP if "sweep" in sys.argv[1:] else SERVES
+            runs = _run(Path(tmp), (), (), serves)
+            for case in serves:
+                print(case, _serve_errors(runs, *case))
+                if "reference" in sys.argv[1:]:
+                    ref_one = _reference_one_device_serve(runs[0], *case)
+                    key = "serve_{}_{}_{}".format(*case)
+                    print("  the reference's sharded step against its one-device step",
+                          _whole_errors(runs[2][key][:2], ref_one, case[2]),
+                          "; the port's one-device step against that",
+                          _whole_errors(runs[3][key], ref_one, case[2]))
+        else:
+            cases = SWEEP if "sweep" in sys.argv[1:] else CASES
+            print("\n".join(_readings(_run(Path(tmp), cases, ()), cases,
+                                      "reference" in sys.argv[1:])))

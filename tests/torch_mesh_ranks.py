@@ -155,12 +155,11 @@ def run(rank: int, world: int, inputs: dict, out: dict) -> None:
         if arch == "yi-6b":
             ckpt = CheckpointManager(inputs["commit_dir"])
             ckpt.save_sharded(int(state.step), state, step.layout, mesh)
-    for preset in sorted(set(sharding.presets()) - set(sharding.MESH_PRESETS)):
-        with sharding.use(mesh, preset):
-            try:
-                TS.make_train_step(yi)
-            except ValueError as e:
-                out[f"refused_{preset}"] = str(e)
+    for preset in ("no_such_preset",):
+        try:
+            TS.make_mesh_train_step(yi, mesh, preset)
+        except ValueError as e:
+            out[f"refused_{preset}"] = str(e)
 
     # ---- elastic: shrink to (1, 2), restore, reshard, one step ----
     small = elastic.shrink_mesh(mesh, "data", 1, device="cpu")

@@ -249,6 +249,16 @@ Phases, each printed on its own line and each able to fail the run:
      collective a rank, and the card's kernel busy share over the traced
      last step (the four ranks' kernel time summed) beside the host
      copies' time.
+ 13c. the dry run (a CPU child started after phase 3b, at the lowest
+     CPU priority, no card; joined after phase 11): ``python -m repro_torch.launch.dryrun`` on yi-6b x
+     decode_32k on the pod mesh (rank 0 of a fake 256-rank world, meta),
+     its record held to what the CPU tests pin; then ``lower_cell`` and
+     one counted call on rank 0 of a fake 4-rank world at the mesh phase's
+     config under ``train_dp``, ``train``, ``decode`` and ``decode_b1``:
+     the bytes each step hands each collective equal rank 0's counts on
+     the card in every step of 13b, and ``argument_bytes`` equals the
+     bytes rank 0's card tensors hold between steps. Prints one
+     ``dryrun:`` line before the card line.
 
 Each kernel's ``launches`` in the JSON line is the sum over the thirteen
 paths driven with counters (the EH main path, the frontend, the durable
@@ -3704,6 +3714,7 @@ def _mesh_run(rank: int, preset: str, step, state, mesh, batches, device) -> dic
     bytes into each collective, the losses and lrs, peak HBM, the gathered
     samples (rank 0) and, under train_dp, ``compressed_psum`` on the first
     step's gradient shards."""
+    from repro_torch.launch.dryrun import held_bytes, kept
     from repro_torch.parallel import collectives
     t0 = time.perf_counter()
     cuda = torch.device(device).type == "cuda"
@@ -3730,6 +3741,8 @@ def _mesh_run(rank: int, preset: str, step, state, mesh, batches, device) -> dic
         out["lrs"].append(float(m["lr"]))
         if i == 0 and preset == "train_dp":
             out["cp"] = _mesh_compressed(step, mesh)
+    # what the rank holds between steps: the dry run's argument_bytes
+    out["arg_bytes"] = held_bytes((state, batch), kept(step))
     samples = _gathered_samples(state.params, step.layout, mesh)
     if rank == 0:
         out["samples"] = {k: v.cpu().numpy() for k, v in samples.items()}
@@ -4033,6 +4046,7 @@ def _mesh_serve_run(rank: int, mesh, cfg, prep: dict, device) -> dict:
     logits block, the final k / v pieces of the first layer, peak HBM and
     the cache's GB."""
     import gc
+    from repro_torch.launch.dryrun import held_bytes
     from repro_torch.parallel import collectives, sharding
     from repro_torch.train import steps as TS
     cuda = torch.device(device).type == "cuda"
@@ -4068,6 +4082,7 @@ def _mesh_serve_run(rank: int, mesh, cfg, prep: dict, device) -> dict:
                 run["step_ms"].append(ms)
             run["bytes"].append(dict(collectives.BYTES))
             run["logits"].append(lg.cpu().numpy())
+        run["arg_bytes"] = held_bytes((params, state, x))
         run["cache"] = {f: state["blocks_0"][f].float().cpu().numpy() for f in "kv"}
         run["cache_gb"] = sum(t.numel() * t.element_size() for k, leaf in state.items()
                               if k != "pos" for t in leaf.values()) / 1e9
@@ -4452,6 +4467,135 @@ def mesh_line(mesh, card: str, cards: int = 1) -> str:
         lines.append(serve_line(mesh["serve"], [r["serve"] for r in mesh["ranks"]], card, cards)
                      + f"; {r0['serve']['seconds']:.1f}s in rank 0")
     return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
+# the dry run: a CPU child beside the whole run (the card is not touched)
+# ---------------------------------------------------------------------------
+
+#: the CLI's cell on the pod mesh (a fake 256-rank world, meta) and what the
+#: CPU tests pin for it (tests/test_torch_dryrun.py)
+DRYRUN_CELL = ("yi-6b", "decode_32k")
+DRYRUN_WANT = {"status": "ok", "n_devices": 256, "static_bytes_per_device": 1_831_870_496,
+               "dot_flops_per_device": 16_401_825_792,
+               "collective_input_bytes": {"all-reduce": 12_779_520, "all-gather": 131_072}}
+DRYRUN_TIMEOUT = 600.0
+DRYRUN_DIR = Path(__file__).resolve().parent / "build" / "dryrun"
+
+
+def _dryrun_child(path: str) -> None:
+    """The dry-run phase's child (no card): (a) the CLI on ``DRYRUN_CELL``
+    into a directory of its own, its record; (b) ``lower_cell`` and one
+    counted call of each step on rank 0 of a fake 4-rank world over a 2 x 2
+    mesh, at the mesh phase's config (yi-6b on ``MESH_LAYERS`` layers, phase
+    13's ``TRAIN_BATCH`` x ``TRAIN_SEQ`` batch under each preset of
+    ``MESH_RUNS``, each (preset, lanes) of ``MESH_SERVES`` on a
+    ``MESH_SERVE_CACHE``-slot ring): the bytes handed each collective and
+    ``argument_bytes``. Pickled to ``path``. It runs at the lowest CPU
+    priority (its CLI too), so the run's own host-paced processes keep
+    their cores."""
+    import dataclasses
+    import pickle
+    os.nice(19)
+    _child_setup(1)
+    out = {}
+    t0 = time.perf_counter()
+    cli_out = DRYRUN_DIR / "cli"
+    shutil.rmtree(cli_out, ignore_errors=True)
+    src, pypath = str(Path(__file__).resolve().parent / "src"), os.environ.get("PYTHONPATH")
+    env = {**os.environ, "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": src + (os.pathsep + pypath if pypath else "")}
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                        DRYRUN_CELL[0], "--shape", DRYRUN_CELL[1], "--mesh", "pod", "--out",
+                        str(cli_out)], env=env, capture_output=True, text=True,
+                       timeout=DRYRUN_TIMEOUT / 2)
+    rec = cli_out / "pod" / f"{DRYRUN_CELL[0]}__{DRYRUN_CELL[1]}.json"
+    out["cli"] = json.loads(rec.read_text()) if rec.exists() else None
+    out["cli_rc"], out["cli_tail"] = r.returncode, (r.stdout + r.stderr)[-2000:]
+    out["cli_s"] = time.perf_counter() - t0
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs import shapes
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_test_mesh
+    t1 = time.perf_counter()
+    dryrun.fake_world(4)
+    mesh = make_test_mesh(2, 2, device="cpu")
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=MESH_LAYERS)
+    # the mesh phase's shapes and config in this child's registries
+    dryrun.get_config = lambda arch: cfg
+    cells = [(p, "mesh_train", p) for p in MESH_RUNS]
+    shapes.SHAPES["mesh_train"] = shapes.ShapeCase("mesh_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    for preset, lanes in MESH_SERVES:
+        shapes.SHAPES[f"mesh_{preset}"] = shapes.ShapeCase(f"mesh_{preset}", MESH_SERVE_CACHE,
+                                                           lanes, "decode")
+        cells.append((preset, f"mesh_{preset}", preset))
+    out["cells"] = {}
+    for name, shape, rules in cells:
+        step, args, aux = dryrun.lower_cell(TRAIN_ARCH, shape, mesh, rules)
+        got = dryrun.count_step(step, args)
+        out["cells"][name] = {"bytes": got["collective_input_bytes"],
+                              "argument_bytes": got["memory_analysis"]["argument_bytes"],
+                              "flops": got["dot_flops_per_device"], "rules": aux["rules"]}
+    out["cells_s"] = time.perf_counter() - t1
+    out["seconds"] = time.perf_counter() - t0
+    with open(path, "wb") as f:
+        pickle.dump(out, f)
+
+
+def start_dryrun():
+    """Start the dry-run phase's child (after phase 3b, when the run's other
+    CPU children are done or waiting)."""
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    DRYRUN_DIR.mkdir(parents=True)
+    return _spawn_child(_dryrun_child, (str(DRYRUN_DIR / "out.pkl"),), "dryrun")
+
+
+def dryrun_checks(child, mesh: dict) -> dict:
+    """Join the dry-run child and check it: the CLI's record is the one the
+    CPU tests pin; at the mesh phase's config, the bytes a step hands each
+    collective under every preset equal what the mesh phase's rank 0 counted
+    on the card in every step, and ``argument_bytes`` equals the bytes its
+    card tensors hold between steps (the step's arguments and what it
+    keeps)."""
+    import pickle
+    from repro_torch.launch.dryrun import KINDS
+    _join(child, DRYRUN_TIMEOUT, "dryrun")
+    with open(DRYRUN_DIR / "out.pkl", "rb") as f:
+        dr = pickle.load(f)
+    cli = dr["cli"]
+    check(dr["cli_rc"] == 0 and cli is not None, f"dryrun: the CLI exited with {dr['cli_rc']}: "
+          f"{dr['cli_tail']}")
+    for k, v in DRYRUN_WANT.items():
+        check(cli[k] == v, f"dryrun: {k} {cli[k]} for {v}")
+    r0 = mesh["ranks"][0]
+    card = {p: r0["runs"][p] for p in MESH_RUNS}
+    card.update({p: r0["serve"]["runs"][p] for p, _ in MESH_SERVES})
+    for preset, run in card.items():
+        want = dr["cells"][preset]
+        for i, b in enumerate(run["bytes"]):
+            named = {KINDS[k]: v for k, v in b.items() if v}
+            check(named == want["bytes"], f"dryrun {preset}: step {i} on the card handed "
+                  f"{named}, the dry run {want['bytes']}")
+        check(run["arg_bytes"] == want["argument_bytes"], f"dryrun {preset}: the card holds "
+              f"{run['arg_bytes']} B, the dry run's argument_bytes {want['argument_bytes']}")
+    dr["held"] = {p: (dr["cells"][p]["bytes"], card[p]["arg_bytes"]) for p in card}
+    return dr
+
+
+def dryrun_line(dr, card: str) -> str:
+    cli = dr["cli"]
+    wire = ", ".join(f"{k} {v:.0f}" for k, v in cli["collective_wire_bytes"].items())
+    held = "; ".join(f"{p}: " + ", ".join(f"{k} {v}" for k, v in b.items())
+                     + f", argument {a} B" for p, (b, a) in dr["held"].items())
+    return (f"dryrun: {cli['arch']} x {cli['shape']} on the pod mesh (rank 0 of a fake "
+            f"{cli['n_devices']}-rank world, meta, on the CPU): dot FLOPs a device "
+            f"{cli['dot_flops_per_device']}, static {cli['static_bytes_per_device']} B, argument "
+            f"{cli['memory_analysis']['argument_bytes']} B, wire B {wire}, lower "
+            f"{cli['lower_s']}s run {cli['compile_s']}s; at the mesh phase's config every "
+            f"preset's bytes into each collective and argument bytes equal rank 0's on the card "
+            f"({held}); the child {dr['seconds']:.1f}s (the CLI {dr['cli_s']:.1f}s, the 2 x 2 "
+            f"cells {dr['cells_s']:.1f}s) beside the run [{card}]")
 
 
 def _rank_entry(target, rank: int, world: int, init: str, backend: str, result: str,
@@ -5069,7 +5213,7 @@ def main(argv=None) -> int:
         log(f"frontend cut: {args.fe_keys} keys of 8000000")
     report = {}
     t0 = time.perf_counter()
-    cpu_child, cards, side = start_cpu_halves(), None, None
+    cpu_child, cards, side, dry_child = start_cpu_halves(), None, None, None
     try:
         phase_build()
         phase_bulk_hash(report)
@@ -5079,6 +5223,9 @@ def main(argv=None) -> int:
         phase_cuda_vs_cpu(cpu_child)
         nccl = _wait_ranks(nccl, DHT_TIMEOUT, "the DHT's NCCL rank")[0]
         phase_edges()
+        # the dry run's CPU child starts once the CPU halves and the DHT
+        # ranks' start-up are over: beside them it cost the run ~28 s
+        dry_child = start_dryrun()
         t, keys, misses, summary, truth = phase_main_path(
             DashConfig(max_segments=32768, dir_depth_max=17), args.keys, 1000, report)
         with quiet_card(pause_side=True):
@@ -5118,11 +5265,12 @@ def main(argv=None) -> int:
         mesh_cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=MESH_LAYERS)
         dht = phase_dht(report, card, nccl, n_dht,
                         mesh={"cfg": mesh_cfg, "record": train.pop("mesh_record")}, cards=cards)
+        dry = dryrun_checks(dry_child, dht["mesh"])
     except PhaseError as e:
         log(f"FAILED: {e}")
         return 1
     finally:
-        for child in (cpu_child, side[0] if side is not None else None):
+        for child in (cpu_child, dry_child, side[0] if side is not None else None):
             if child is not None and child.is_alive():
                 child.kill()
                 child.join()
@@ -5192,6 +5340,7 @@ def main(argv=None) -> int:
         f"p50 {dht['p50']:.3f} ms p99 {dht['p99']:.3f} ms ({dht['keys']} keys, "
         f"{dht['segments']} segments); phase {dht['seconds']:.0f}s; total "
         f"{time.perf_counter() - t0:.0f}s")
+    log(dryrun_line(dry, card))
     log(card)
     log(kernel_line(report))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

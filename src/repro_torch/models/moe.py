@@ -101,9 +101,16 @@ def _moe_math(cfg: MoEConfig, x, router_w, wg, wu, wd, cap: int, e0: int = 0, ro
     # (token row, expert, gate) of every kept assignment, grouped by expert
     tok = (torch.arange(B, device=x.device)[:, None] * S
            + torch.arange(S, device=x.device).repeat_interleave(K)[None]).reshape(-1)
-    e = torch.where(keep, experts, E).reshape(-1)
-    order = torch.argsort(e, stable=True)
-    counts = torch.bincount(e, minlength=E + 1)[:E].tolist()              # one host sync
+    if x.device.type == "meta":
+        # no routing to read on the meta device (the dry run): every expert
+        # takes ``cap`` rows of each batch row, as the reference's
+        # zero-padded (B, E, cap, d) buffer multiplies them
+        counts = [B * cap] * E
+        order = torch.empty(E * B * cap, dtype=torch.long, device=x.device)
+    else:
+        e = torch.where(keep, experts, E).reshape(-1)
+        order = torch.argsort(e, stable=True)
+        counts = torch.bincount(e, minlength=E + 1)[:E].tolist()          # one host sync
     xf = x.reshape(B * S, d)
     y = torch.zeros_like(xf)
     start = 0

@@ -36,11 +36,27 @@ _GROUPS: dict = {}
 #: bytes this rank has handed to each kind of collective (its input
 #: tensors), since the last ``reset_bytes``
 BYTES = {"all_gather": 0, "reduce_scatter": 0, "all_reduce": 0, "all_to_all": 0}
+#: (kind, group size) -> [calls, bytes handed in] since the last
+#: ``reset_bytes``: what each kind of collective was handed, by the size of
+#: the group it ran over (a wire model's ring factors depend on it;
+#: ``launch.dryrun.wire_bytes``). Kept as sums, not a list of calls, so that
+#: a long run holds no more than a handful of entries.
+CALLS: dict = {}
 
 
 def reset_bytes() -> None:
     for k in BYTES:
         BYTES[k] = 0
+    CALLS.clear()
+
+
+def _count(kind: str, t: torch.Tensor, ag) -> None:
+    """One call of ``kind`` handed ``t`` over ``ag``'s group."""
+    n = t.numel() * t.element_size()
+    BYTES[kind] += n
+    rec = CALLS.setdefault((kind, ag.size), [0, 0])
+    rec[0] += 1
+    rec[1] += n
 
 
 def _mesh_key(mesh):
@@ -75,6 +91,13 @@ def axis_groups(mesh) -> dict:
             out[axes] = table
     _GROUPS[key] = out
     return out
+
+
+def clear_groups() -> None:
+    """Forget every mesh's groups (after the world they were made in is
+    destroyed)."""
+    _GROUPS.clear()
+    _AXIS_GROUPS.clear()
 
 
 class AxisGroup:
@@ -166,7 +189,7 @@ def all_reduce_(t: torch.Tensor, ag: AxisGroup, op=dist.ReduceOp.SUM) -> torch.T
         return t
     if t.dtype in _NARROW:
         return t.copy_(all_reduce_(t.to(torch.float32), ag, op))
-    BYTES["all_reduce"] += t.numel() * t.element_size()
+    _count("all_reduce", t, ag)
     if staged(ag.group, t):
         host = _host_view("in", t)
         host.copy_(t)
@@ -178,7 +201,7 @@ def all_reduce_(t: torch.Tensor, ag: AxisGroup, op=dist.ReduceOp.SUM) -> torch.T
 
 def _gather(t: torch.Tensor, ag: AxisGroup, dim: int) -> torch.Tensor:
     t = t.contiguous()
-    BYTES["all_gather"] += t.numel() * t.element_size()
+    _count("all_gather", t, ag)
     flat = t.reshape((1,) + tuple(t.shape))
     out = torch.empty((ag.size,) + tuple(t.shape), dtype=t.dtype, device=t.device)
     # the collective takes the ranks' blocks concatenated on dim 0
@@ -195,7 +218,7 @@ def _scatter(t: torch.Tensor, ag: AxisGroup, dim: int) -> torch.Tensor:
     shape = list(t.shape)
     n = shape[dim] // ag.size
     parts = t.reshape(shape[:dim] + [ag.size, n] + shape[dim + 1:]).movedim(dim, 0).contiguous()
-    BYTES["reduce_scatter"] += t.numel() * t.element_size()
+    _count("reduce_scatter", t, ag)
     if t.dtype in _NARROW:
         # the blocks to their owners in the narrow dtype, summed there in
         # f32 and rounded once (the reference's reduce-scatter of a bf16
@@ -252,7 +275,7 @@ def all_gather(t: torch.Tensor, ag: AxisGroup, dim: int) -> torch.Tensor:
 def _a2a(t: torch.Tensor, ag: AxisGroup, count: bool = True) -> torch.Tensor:
     t = t.contiguous()
     if count:
-        BYTES["all_to_all"] += t.numel() * t.element_size()
+        _count("all_to_all", t, ag)
     out = torch.empty_like(t)
     return _run(ag.group, lambda o, i: dist.all_to_all_single(o, i, group=ag.group), out, t)
 

@@ -579,7 +579,8 @@ def make_mesh_prefill_step(cfg: ModelConfig, mesh, rules: str):
     calling it together: its rows, and under sequence parallelism its piece
     of the sequence with the whole vocabulary (the reference's
     ``("batch", "seq", "vocab")`` block). The working model is gathered
-    from the shards at every call."""
+    from the shards at every call and kept between calls in
+    ``step.held["bound"]``."""
     _check_preset(rules)
     with sharding.use(mesh, rules):
         layout = mesh_layout(cfg, mesh)
@@ -596,6 +597,7 @@ def make_mesh_prefill_step(cfg: ModelConfig, mesh, rules: str):
             logits, _ = forward_train(b.model, cfg, local_rows(batch, _row_group(mesh, batch)))
         return logits
 
+    step.held = held
     step.layout = layout
     return step
 

@@ -1,0 +1,8 @@
+"""Share of the traced sub-window of a load in which no operation ran on
+the card (1 - busy union / window, profiler)."""
+
+
+def read(rec):
+    if rec.op != "insert" or rec.trace is None or rec.trace["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - rec.trace["busy_s"] / rec.trace["window_s"])
